@@ -1,0 +1,358 @@
+"""The PyTorch port's ops held against the JAX package, on the CPU.
+
+Inputs are made with a seeded numpy generator and handed to both
+packages.  Where the JAX function runs a Pallas kernel, it runs it in
+interpret mode, as the JAX package's own tests do.  On CPU tensors the
+port's kernel wrappers run their plain PyTorch versions, so these tests
+hold those plain versions (the CUDA kernels' references) against JAX.
+Selections (indices) must match exactly; each value tolerance is stated
+where it is used.
+"""
+
+import unittest.mock as mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import threepu.ops.fps_pallas as jfp
+import threepu.ops.interlevel_pallas as jil
+from threepu.io.checkpoint import _flatten, export_reference_state
+from threepu.ops import chamfer as jchamfer
+from threepu.ops import distances as jdist
+from threepu.ops import fps as jfps
+from threepu.ops import knn as jknn
+from threepu.ops import normalize as jnorm
+from threepu.ops.select_pallas import select_pallas
+from test_interlevel import _xla_reference
+
+import threepu_torch.ops.fps as tfps
+import threepu_torch.ops.interlevel as til
+import threepu_torch.ops.select as tsel
+from threepu_torch.io.weights import load_jax_checkpoint, state_dict_from_jax
+from threepu_torch.ops import chamfer as tchamfer
+from threepu_torch.ops import distances as tdist
+from threepu_torch.ops import gather as tgather
+from threepu_torch.ops import knn as tknn
+from threepu_torch.ops import normalize as tnorm
+
+WEIGHTS = "artifacts/prod_clean_final.npz"
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def interpret(module):
+    """Run ``module``'s Pallas calls in interpret mode (CPU)."""
+    orig = pl.pallas_call
+    return mock.patch.object(module.pl, "pallas_call",
+                             lambda *a, **kw: orig(*a, interpret=True, **kw))
+
+
+# ------------------------------------------------------------- select
+def _select_cases(rng):
+    n = 312
+    d = rng.integers(0, 40, (4, 37, n)).astype(np.float32)
+    d[..., rng.permutation(n)[:64]] = 1e30          # dedup penalty block
+    yield "ties+penalty", d, 33
+    d = rng.integers(0, 40, (2, 9, n)).astype(np.float32)
+    d[..., : n - 20] = 1e30                          # < k unpenalized columns
+    yield "few-real-columns", d, 33
+    yield "all-ties", np.ones((2, 5, n), np.float32), 7
+    yield "2d-ragged", rng.standard_normal((8, 200)).astype(np.float32), 5
+    pts = rng.standard_normal((2, n, 3)).astype(np.float32)
+    pts[:, 1::7] = pts[:, 0::7]                      # duplicate points
+    pj = jnp.asarray(pts)
+    yield "dup-points", np.asarray(jdist.pairwise_dist2(pj, pj)), 33
+
+
+def test_select_plain_matches_select_pallas(rng):
+    """select_plain == select_pallas (interpret): identical values and
+    indices, ties to the lowest index, penalty fall-back in index order."""
+    for name, d, k in _select_cases(rng):
+        want_v, want_i = select_pallas(jnp.asarray(d), k, interpret=True)
+        got_v, got_i = tsel.select_plain(t(d), k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i),
+                                      err_msg=name)
+        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v),
+                                      err_msg=name)
+        assert got_i.dtype == torch.int32
+
+
+def test_select_on_cpu_runs_the_plain_version(rng):
+    d = t(rng.standard_normal((3, 8, 40)).astype(np.float32))
+    before = tsel.KERNEL.launches
+    v, i = tsel.select(d, 5)
+    pv, pi = tsel.select_plain(d, 5)
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+    assert tsel.KERNEL.launches == before
+    with pytest.raises(ValueError, match="exceeds"):
+        tsel.select(d, 41)
+
+
+# ---------------------------------------------------------------- fps
+def _fps_inputs(rng, b, n):
+    pts = rng.standard_normal((b, n, 3)).astype(np.float32)
+    valid = np.ones((b, n), bool)
+    valid[0, :30] = False                            # seed moves off 0
+    valid[1, n // 2:] = False
+    pts[0, 5] = np.nan                               # masked and non-finite
+    pts[1, 40] = np.inf                              # valid but non-finite
+    pts[1, 41] = -np.inf
+    return pts, valid
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_fps_plain_matches_fps_indices_and_pallas(rng, masked):
+    pts, valid = _fps_inputs(rng, 2, 700)
+    if not masked:
+        pts = np.nan_to_num(pts, nan=0.5, posinf=0.5, neginf=0.5)
+        valid = None
+    jv = None if valid is None else jnp.asarray(valid)
+    want = np.asarray(jfps.fps_indices(jnp.asarray(pts), 150, valid_mask=jv))
+    with interpret(jfp):
+        want_pallas = np.asarray(jfp.fps_pallas(jnp.asarray(pts), 150,
+                                                valid_mask=jv))
+    tv = None if valid is None else t(valid)
+    got = tfps.fps_plain(t(pts), 150, tv)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want_pallas)
+    np.testing.assert_array_equal(tfps.fps(t(pts), 150, tv).numpy(), want)
+
+
+def test_fps_all_invalid_and_overpick(rng):
+    """No valid point: seed 0 and index 0 forever (jnp.argmax of an
+    all-False mask / all -inf carry); more picks than valid points repeat
+    the lowest index with a zero carry, as fps_indices does."""
+    pts = rng.standard_normal((2, 20, 3)).astype(np.float32)
+    valid = np.zeros((2, 20), bool)
+    valid[1, [3, 9, 11]] = True
+    want = np.asarray(jfps.fps_indices(jnp.asarray(pts), 6,
+                                       valid_mask=jnp.asarray(valid)))
+    np.testing.assert_array_equal(
+        tfps.fps_plain(t(pts), 6, t(valid)).numpy(), want)
+
+
+def test_morton_codes_match(rng):
+    pts = rng.standard_normal((2, 500, 3)).astype(np.float32)
+    mask = rng.random((2, 500)) > 0.2
+    for vm in (None, mask):
+        want = jfps.morton_codes(jnp.asarray(pts), valid_mask=None if vm is None
+                                 else jnp.asarray(vm))
+        got = tfps.morton_codes(t(pts), valid_mask=None if vm is None
+                                else t(vm))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_fps_hierarchical_matches(rng, masked):
+    """Grouped Morton FPS: exact indices against the JAX function on its
+    XLA scan and with the Pallas kernel (interpret) inside."""
+    b, n, m, group_max = 2, 1503, 300, 400   # 4 groups, 1 padded row
+    pts = rng.standard_normal((b, n, 3)).astype(np.float32)
+    valid = None
+    if masked:
+        valid = np.ones((b, n), bool)
+        valid[0, 1000:] = False                      # heavily padded cloud
+        valid[1, ::7] = False
+    jv = None if valid is None else jnp.asarray(valid)
+    want = np.asarray(jfps.fps_hierarchical(
+        jnp.asarray(pts), m, valid_mask=jv, group_max=group_max,
+        use_pallas=False))
+    with interpret(jfp):
+        want_pallas = np.asarray(jfps.fps_hierarchical(
+            jnp.asarray(pts), m, valid_mask=jv, group_max=group_max,
+            use_pallas=True))
+    got = tfps.fps_hierarchical(t(pts), m, None if valid is None else t(valid),
+                                group_max=group_max).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, want_pallas)
+
+
+def test_dispatch_fps_goes_hierarchical_above_the_cap(rng, monkeypatch):
+    pts = t(rng.standard_normal((1, 50, 3)).astype(np.float32))
+    monkeypatch.setattr(tfps, "PALLAS_MAX_N", 20)
+    got = tfps._dispatch_fps(pts, 10).numpy()
+    np.testing.assert_array_equal(got, tfps.fps_hierarchical(pts, 10).numpy())
+    assert not np.array_equal(got, tfps.fps(pts, 10).numpy())
+
+
+# ---------------------------------------------------------- interlevel
+def _interlevel_inputs(rng, p, g, n, m, c):
+    """Previous sets with duplicate and phantom columns; queries well
+    apart from every tie (the JAX kNN ranks in matmul form, the port by
+    direct subtraction)."""
+    pxyz = rng.standard_normal((p, m, 3)).astype(np.float32)
+    pxyz[0, 7] = pxyz[0, 3]                          # duplicate pair
+    pxyz[0, 20:24] = pxyz[0, 10:14]
+    pf = rng.standard_normal((p, m, c)).astype(np.float32)
+    pf[0, 7] = pf[0, 3]
+    pf[0, 20:24] = pf[0, 10:14]
+    dup = np.array(jdist.duplicate_mask(jnp.asarray(pxyz)))
+    dup[:, m - 6:] = True                            # phantom rows
+    q = rng.standard_normal((p * g, n, 3)).astype(np.float32)
+    xq = rng.standard_normal((p * g, n, c)).astype(np.float32)
+    return q, xq, pxyz, pf, dup
+
+
+@pytest.mark.parametrize("p,g,n,m,c,k", [(2, 3, 16, 40, 12, 4),
+                                         (2, 1, 24, 60, 20, 5),
+                                         (1, 2, 10, 9, 6, 5)],
+                         ids=["grouped", "group1", "few-distinct"])
+def test_interlevel_plain_matches_xla_path(rng, p, g, n, m, c, k):
+    """Against the XLA branch of the Level (tests/test_interlevel.py's
+    reference): picks exact, values to atol = rtol = 1e-5 (float32
+    rounding of the distance and weight sums)."""
+    q, xq, pxyz, pf, dup = _interlevel_inputs(rng, p, g, n, m, c)
+    if m == 9:      # fewer distinct candidates than k: duplicates fill in
+        pxyz[0, 3:] = pxyz[0, :6]
+        pf[0, 3:] = pf[0, :6]
+        dup = np.array(jdist.duplicate_mask(jnp.asarray(pxyz)))
+    res = jknn.knn_group(jnp.asarray(q).reshape(p, g * n, 3),
+                         jnp.asarray(pxyz), k, unique=True,
+                         dup_mask=jnp.asarray(dup), method="exact")
+    want = _xla_reference(jnp.asarray(q), jnp.asarray(xq), jnp.asarray(pxyz),
+                          jnp.asarray(pf), jnp.asarray(dup), k)
+    got, idx = til.interlevel_plain(t(q), t(xq), t(pxyz), t(pf), t(dup), k)
+    np.testing.assert_array_equal(
+        idx.numpy(), np.asarray(res.idx).reshape(p * g, n, k))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=1e-5, rtol=1e-5)
+    got2, idx2 = til.interlevel(t(q), t(xq), t(pxyz), t(pf), t(dup), k)
+    assert torch.equal(got2, got) and torch.equal(idx2, idx)
+
+
+def test_interlevel_plain_matches_select_pallas(rng):
+    """Against the TPU selection kernel (interpret), multi-chunk M with
+    duplicates: identical picks."""
+    p, g, n, m, k = 1, 2, 8, 2560, 5
+    q, _, pxyz, _, _ = _interlevel_inputs(rng, p, g, n, m, 4)
+    pxyz[0, 100:110] = pxyz[0, 0:10]
+    dup = np.array(jdist.duplicate_mask(jnp.asarray(pxyz)))
+    with interpret(jil):
+        _, want = jil.interlevel_select_pallas(
+            jnp.asarray(q), jnp.asarray(pxyz), jnp.asarray(dup), k)
+    xq = np.zeros((p * g, n, 4), np.float32)
+    pf = np.zeros((p, m, 4), np.float32)
+    _, idx = til.interlevel_plain(t(q), t(xq), t(pxyz), t(pf), t(dup), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------ knn and friends
+@pytest.mark.parametrize("k", [5, 40], ids=["select-gate", "sort"])
+def test_knn_group_matches(rng, k):
+    """unique + valid_mask + dup_mask, through the selection gate (k <= 64,
+    M >= 8) and the sort path; indices exact, values to 1e-5."""
+    q = rng.standard_normal((2, 16, 6)).astype(np.float32)
+    pts = rng.standard_normal((2, 80, 6)).astype(np.float32)
+    pts[:, 11] = pts[:, 2]                           # duplicates
+    valid = rng.random((2, 80)) > 0.15
+    for kw in (dict(unique=True), dict(valid_mask=True),
+               dict(unique=True, valid_mask=True), dict()):
+        jkw = dict(kw)
+        tkw = dict(kw)
+        if kw.get("valid_mask"):
+            jkw["valid_mask"] = jnp.asarray(valid)
+            tkw["valid_mask"] = t(valid)
+        want = jknn.knn_group(jnp.asarray(q), jnp.asarray(pts), k, **jkw)
+        got = tknn.knn_group(t(q), t(pts), k, **tkw)
+        np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
+        np.testing.assert_allclose(got.dist2.numpy(), np.asarray(want.dist2),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_array_equal(got.neighbors.numpy(),
+                                      np.asarray(want.neighbors))
+    dup = np.asarray(jdist.duplicate_mask(jnp.asarray(pts)))
+    got = tknn.knn_group(t(q), t(pts), k, unique=True, dup_mask=t(dup),
+                         with_neighbors=False)
+    assert got.neighbors is None
+    want = jknn.knn_group(jnp.asarray(q), jnp.asarray(pts), k, unique=True)
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(want.idx))
+
+
+def test_knn_k_exceeds_n_raises(rng):
+    pts = t(rng.standard_normal((1, 4, 3)).astype(np.float32))
+    with pytest.raises(ValueError, match="exceeds"):
+        tknn.knn_group(pts, pts, 5)
+
+
+@pytest.mark.parametrize("b,n", [(3, 200), (8, 3000)],
+                         ids=["direct", "sort"])
+def test_duplicate_mask_matches(rng, b, n):
+    """Both branches (direct compare; three stable sorts once b*n*n*3
+    exceeds the budget), keep-first semantics, -0.0 equal to +0.0."""
+    pts = rng.integers(-3, 4, (b, n, 3)).astype(np.float32)  # many repeats
+    pts[0, 1] = [0.0, -0.0, 1.0]
+    pts[0, 2] = [-0.0, 0.0, 1.0]
+    want = np.asarray(jdist.duplicate_mask(jnp.asarray(pts)))
+    got = tdist.duplicate_mask(t(pts)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 2] and not got[0, 1]
+
+
+def test_distances_match(rng):
+    a = rng.standard_normal((2, 30, 5)).astype(np.float32)
+    b = rng.standard_normal((2, 40, 5)).astype(np.float32)
+    np.testing.assert_allclose(
+        tdist.pairwise_dist2(t(a), t(b)).numpy(),
+        np.asarray(jdist.pairwise_dist2(jnp.asarray(a), jnp.asarray(b))),
+        atol=1e-5)
+    np.testing.assert_allclose(
+        tdist.direct_dist2(t(a), t(b)).numpy(),
+        np.asarray(jdist.direct_dist2(jnp.asarray(a), jnp.asarray(b))),
+        rtol=1e-6)
+
+
+def test_self_nn_dist2_matches(rng):
+    """Chunked masked min, chunk edges included; to 1e-6 (matmul form)."""
+    pts = rng.standard_normal((2, 300, 3)).astype(np.float32)
+    want = np.asarray(jchamfer.self_nn_dist2(jnp.asarray(pts), chunk=128))
+    for chunk in (128, 2048):
+        got = tchamfer.self_nn_dist2(t(pts), chunk=chunk).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+
+
+def test_normalize_and_gather_match(rng):
+    pc = rng.standard_normal((3, 50, 3)).astype(np.float32) * 4 + 1
+    want = jnorm.normalize_point_batch_cl(jnp.asarray(pc))
+    got = tnorm.normalize_point_batch_cl(t(pc))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6,
+                                   atol=1e-6)
+    idx = rng.integers(0, 50, (3, 7, 4))
+    np.testing.assert_array_equal(
+        tgather.batched_gather(t(pc), t(idx)).numpy(), pc[np.arange(3)[:, None,
+                                                                      None], idx])
+    idx2 = rng.integers(0, 50, (3, 9)).astype(np.int32)
+    np.testing.assert_array_equal(tgather.gather_nd(t(pc), t(idx2)).numpy(),
+                                  np.take_along_axis(pc, idx2[..., None], 1))
+
+
+# ------------------------------------------------------------- weights
+def test_state_dict_matches_export_reference_state():
+    """The port's numpy mapping == threepu.io.checkpoint's, key for key
+    and array for array, on the trained checkpoint."""
+    with np.load(WEIGHTS) as z:
+        flat = {k: z[k] for k in z.files}
+    got = state_dict_from_jax(flat)
+    tree = {}
+    for key, value in flat.items():
+        if key.startswith("params/"):
+            node = tree
+            *path, leaf = key[len("params/"):].split("/")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = value
+    want = export_reference_state({"params": tree})["states"]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == torch.float32
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    loaded = load_jax_checkpoint(WEIGHTS)
+    assert set(loaded) == set(got)
+    assert _flatten(tree).keys() == {k[len("params/"):] for k in flat
+                                     if k.startswith("params/")}

@@ -1,0 +1,149 @@
+"""Whole-shape upsampling pipeline (port of ``threepu/inference.py``).
+
+Seed FPS picks the patch centres, kNN grouping forms the patches, each
+patch is normalized, the ``Net`` eval cascade runs over patch chunks,
+the patches are denormalized and merged, and a final FPS re-stitches
+the merge to ``num_out`` points.  Everything runs on the device of the
+input tensor; the host touches the data to upload the shape and to
+download the result.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from threepu_torch.models import Net
+from threepu_torch.ops.fps import PALLAS_MAX_N, _dispatch_fps, fps_hierarchical
+from threepu_torch.ops.gather import gather_nd
+from threepu_torch.ops.knn import knn_group
+from threepu_torch.ops.normalize import normalize_point_batch_cl
+from threepu_torch.utils import pc_utils
+
+#: group count of the hierarchical final re-stitch, and the output size
+#: from which it engages when ``restitch_groups`` is left unset (the JAX
+#: package's defaults, chosen there at trained weights)
+DEFAULT_RESTITCH_GROUPS = 8
+RESTITCH_AUTO_MIN_OUT = 16384
+
+
+def plan_patches(num_shape_point: int, num_point: int,
+                 patch_num_ratio: float = 3.0,
+                 chunk: Optional[int] = None) -> Tuple[int, int, int]:
+    """``(num_patches, padded_num_patches, chunk)``: the reference's
+    patch count ``int(N / num_point * patch_num_ratio)``, padded up to a
+    whole number of chunks."""
+    num_patches = max(int(num_shape_point / num_point * patch_num_ratio), 1)
+    if chunk is None or chunk >= num_patches:
+        chunk = num_patches
+    padded = -(-num_patches // chunk) * chunk
+    return num_patches, padded, chunk
+
+
+def resolve_restitch_groups(requested: Optional[int], num_out: int) -> int:
+    """``restitch_groups`` argument -> group count (``None`` = auto)."""
+    if requested is not None:
+        return requested
+    return DEFAULT_RESTITCH_GROUPS if num_out >= RESTITCH_AUTO_MIN_OUT else 1
+
+
+@torch.no_grad()
+def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
+                         num_point: int, num_out: int,
+                         patch_num_ratio: float = 3.0,
+                         chunk: Optional[int] = None,
+                         valid_n: Optional[Union[int, torch.Tensor]] = None,
+                         valid_patches: Optional[Union[int,
+                                                       torch.Tensor]] = None,
+                         restitch_groups: Optional[int] = None
+                         ) -> torch.Tensor:
+    """Upsample one shape ``xyz (N, 3)``, already normalized to the unit
+    sphere, to ``(num_out, 3)`` in the same frame.
+
+    ``valid_n``: only the first ``valid_n`` rows of ``xyz`` are real (the
+    rest are padding, masked out of seed FPS, grouping and the final
+    FPS).  ``valid_patches``: the patch count of the real size; seeds
+    beyond it are masked out of the merge.  ``restitch_groups``: ``None``
+    = G=8 hierarchical final FPS from 16384 output points up and exact
+    FPS below; 1 = exact everywhere; G > 1 = Morton-stratified FPS over
+    G groups.
+    """
+    n = xyz.shape[0]
+    dev = xyz.device
+    num_patches, padded, chunk = plan_patches(n, num_point, patch_num_ratio,
+                                              chunk)
+    shape_b = xyz[None]                                       # (1, N, 3)
+    n_mask = None
+    if valid_n is not None:
+        n_mask = (torch.arange(n, device=dev) < valid_n)[None]
+    seeds = gather_nd(shape_b, _dispatch_fps(shape_b, num_patches, n_mask))
+    patches = knn_group(seeds, shape_b, num_point,
+                        valid_mask=n_mask).neighbors[0]       # (P, K, 3)
+    if padded != num_patches:
+        pad = patches[:1].expand(padded - num_patches, -1, -1)
+        patches = torch.cat([patches, pad], dim=0)
+
+    norm, centroid, radius = normalize_point_batch_cl(patches)
+    up = torch.cat([net.upsample(norm[i:i + chunk], ratio)
+                    for i in range(0, padded, chunk)], dim=0)
+    up = up * radius + centroid                               # denormalize
+    merged = up.reshape(1, padded * num_point * ratio, 3)
+
+    valid = None
+    patch_limit = valid_patches
+    if patch_limit is None and padded != num_patches:
+        patch_limit = num_patches
+    if patch_limit is not None:
+        valid = torch.arange(padded, device=dev)[:, None] < patch_limit
+        valid = valid.expand(padded, num_point * ratio).reshape(1, -1)
+    groups = resolve_restitch_groups(restitch_groups, num_out)
+    if groups > 1:
+        # restitch_groups is a lower bound on the grouping: no group may
+        # outgrow what the FPS kernel's callers expect of one cloud
+        group_max = min(-(-merged.shape[1] // groups), PALLAS_MAX_N)
+        final_idx = fps_hierarchical(merged, num_out, valid_mask=valid,
+                                     group_max=group_max)
+    else:
+        final_idx = _dispatch_fps(merged, num_out, valid)
+    return gather_nd(merged, final_idx)[0]
+
+
+def upsample_shape(net: Net, points: np.ndarray, ratio: int,
+                   num_point: int = 312, patch_num_ratio: float = 3.0,
+                   chunk: Optional[int] = 8,
+                   num_shape_point: Optional[int] = None,
+                   jitter: bool = False, jitter_sigma: float = 0.0025,
+                   jitter_max: float = 0.005, drop_out: float = 1.0,
+                   seed: int = 0,
+                   restitch_groups: Optional[int] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-facing flow of the reference's ``test()``: optional FPS
+    drop-out to ``num_shape_point * drop_out`` points, normalize,
+    optional jitter (numpy, seeded by ``seed``), the device pipeline,
+    denormalize.  Runs on the device that holds ``net``.
+
+    Returns ``(input points as processed, upsampled points)``, both in
+    the original frame.
+    """
+    dev = next(net.parameters()).device
+    points = np.asarray(points, np.float32)[..., :3]
+    n_keep = int((num_shape_point or points.shape[0]) * drop_out)
+    if drop_out < 1.0:
+        pts_b = torch.from_numpy(points[None]).to(dev)
+        idx = _dispatch_fps(pts_b, n_keep)
+        points = gather_nd(pts_b, idx)[0].cpu().numpy()
+
+    data, centroid, furthest = pc_utils.normalize_point_cloud(points)
+    if jitter:
+        is_2d = bool(np.all(data[:, 2] == 0))
+        data = pc_utils.jitter_perturbation_point_cloud(
+            data[None], np.random.default_rng(seed), sigma=jitter_sigma,
+            clip=jitter_max, is_2D=is_2d)[0]
+    up = upsample_point_cloud(
+        net, torch.from_numpy(np.ascontiguousarray(data)).to(dev), ratio,
+        num_point, n_keep * ratio, patch_num_ratio=patch_num_ratio,
+        chunk=chunk, restitch_groups=restitch_groups)
+    up = up.cpu().numpy() * furthest + centroid
+    return data * furthest + centroid, up
