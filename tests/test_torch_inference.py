@@ -215,12 +215,53 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
+_FAKE_NVCC = """#!/bin/sh
+# writes its -o target; fails on a source that holds BROKEN
+out=""; prev=""
+for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done
+for a in "$@"; do
+  case "$a" in *.cu) if grep -q BROKEN "$a"; then echo "bad $a" >&2; exit 2; fi;; esac
+done
+echo "$@" >> "$(dirname "$0")/calls"
+echo built > "$out"
+"""
+
+
+@pytest.mark.parametrize("broken", [False, True], ids=["ok", "broken"])
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, broken):
+    """One nvcc per source, then one link into the hashed library; a
+    failing source raises with its command and output, and links
+    nothing."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text("BROKEN" if broken and name == "b.cu" else "")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(shutil, "which", lambda name: str(nvcc))
+    if broken:
+        with pytest.raises(RuntimeError, match="bad .*b.cu"):
+            _build.build()
+        assert not _build.library_path().exists()
+    else:
+        assert _build.build() == _build.library_path()
+        calls = (nvcc.parent / "calls").read_text().splitlines()
+        assert sum(" -c " in c for c in calls) == 2
+        assert "-shared" in calls[-1] and "a.o" in calls[-1]
+    assert [p.name for p in (tmp_path / "build").iterdir()] == (
+        [] if broken else [_build.library_path().name])
+
+
 def test_library_path_follows_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     sources = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
-    assert {"select.cu", "fps.cu", "interlevel.cu"} <= sources
+    assert {"select.cu", "fps.cu", "interlevel.cu", "chamfer.cu"} <= sources
 
 
 class _FakeLib:
@@ -259,11 +300,12 @@ def test_kernel_counts_only_accepted_launches(monkeypatch, err):
 def test_wrappers_take_the_plain_path_on_cpu():
     """On CPU tensors each wrapper runs its plain version and launches
     nothing; the kernels' argument check refuses CPU tensors."""
+    import threepu_torch.ops.chamfer as tcham
     import threepu_torch.ops.fps as tfps
     import threepu_torch.ops.interlevel as til
     with pytest.raises(ValueError, match="CUDA tensor"):
         _build.check_cuda_tensor("x", torch.zeros(2, 3), torch.float32, 2)
-    before = (tfps.KERNEL.launches, til.KERNEL.launches)
+    before = (tfps.KERNEL.launches, til.KERNEL.launches, tcham.KERNEL.launches)
     g = torch.Generator().manual_seed(0)
     pts = torch.randn(1, 40, 3, generator=g)
     assert torch.equal(tfps.fps(pts, 5), tfps.fps_plain(pts, 5))
@@ -273,7 +315,11 @@ def test_wrappers_take_the_plain_path_on_cpu():
             torch.zeros(1, 40, dtype=torch.bool), 3)
     for a, b in zip(til.interlevel(*args), til.interlevel_plain(*args)):
         assert torch.equal(a, b)
-    assert (tfps.KERNEL.launches, til.KERNEL.launches) == before
+    for a, b in zip(tcham.nn_one_way(pts, args[0][:1]),
+                    tcham.nn_one_way_plain(pts, args[0][:1])):
+        assert torch.equal(a, b)
+    assert (tfps.KERNEL.launches, til.KERNEL.launches,
+            tcham.KERNEL.launches) == before
 
 
 # ------------------------------------------------------------ chip_smoke

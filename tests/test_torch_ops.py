@@ -18,6 +18,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import threepu.ops.chamfer_pallas as jcp
 import threepu.ops.fps_pallas as jfp
 import threepu.ops.interlevel_pallas as jil
 from threepu.io.checkpoint import _flatten, export_reference_state
@@ -92,6 +93,24 @@ def test_select_on_cpu_runs_the_plain_version(rng):
     assert tsel.KERNEL.launches == before
     with pytest.raises(ValueError, match="exceeds"):
         tsel.select(d, 41)
+
+
+def test_select_vjp_matches_select_pallas(rng):
+    """The value cotangent scatters back to the selected columns, as
+    select_pallas's custom VJP does; exact (each row's picks are
+    distinct, so no two cotangents meet), through both versions."""
+    for name, d, k in _select_cases(rng):
+        g = rng.standard_normal(d.shape[:-1] + (k,)).astype(np.float32)
+        _, vjp = jax.vjp(lambda x: select_pallas(x, k, interpret=True)[0],
+                         jnp.asarray(d))
+        (want,) = vjp(jnp.asarray(g))
+        for fn in (tsel.select_plain, tsel.select):
+            dt = t(d).requires_grad_()
+            v, i = fn(dt, k)
+            assert not i.requires_grad
+            v.backward(t(g))
+            np.testing.assert_array_equal(dt.grad.numpy(), np.asarray(want),
+                                          err_msg=name)
 
 
 # ---------------------------------------------------------------- fps
@@ -243,6 +262,32 @@ def test_interlevel_plain_matches_select_pallas(rng):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("p,g", [(2, 3), (3, 1)], ids=["grouped", "group1"])
+def test_interlevel_gradient_matches_xla_path(rng, p, g):
+    """Against jax.vjp of the Level's XLA branch (tests/test_interlevel.py's
+    reference): only prev_feat receives a gradient (JAX stops the
+    gradient of both weight factors), to 1e-5 (float32 sums of w * g in
+    another order)."""
+    n, m, c, k = 16, 40, 12, 5
+    q, xq, pxyz, pf, dup = _interlevel_inputs(rng, p, g, n, m, c)
+    cot = rng.standard_normal((p * g, n, c)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: _xla_reference(*a, jnp.asarray(dup), k),
+                     *map(jnp.asarray, (q, xq, pxyz, pf)))
+    want = vjp(jnp.asarray(cot))
+    for w in want[:3]:
+        assert not np.asarray(w).any()
+    args = [t(a).requires_grad_() for a in (q, xq, pxyz, pf)]
+    for fn in (til.interlevel_plain, til.interlevel):
+        for a in args:
+            a.grad = None
+        out, idx = fn(*args, t(dup), k)
+        assert not idx.requires_grad
+        out.backward(t(cot))
+        assert all(a.grad is None for a in args[:3])
+        np.testing.assert_allclose(args[3].grad.numpy(), np.asarray(want[3]),
+                                   rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------------------ knn and friends
 @pytest.mark.parametrize("k", [5, 40], ids=["select-gate", "sort"])
 def test_knn_group_matches(rng, k):
@@ -314,6 +359,87 @@ def test_self_nn_dist2_matches(rng):
     for chunk in (128, 2048):
         got = tchamfer.self_nn_dist2(t(pts), chunk=chunk).numpy()
         np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+
+
+def _nn_tie_inputs(rng, b, n, m):
+    """Integer-grid points: many exact distance ties, duplicate
+    reference points, and queries that sit on reference points."""
+    a = rng.integers(-4, 5, (b, n, 3)).astype(np.float32)
+    r = rng.integers(-4, 5, (b, m, 3)).astype(np.float32)
+    r[:, 1::9] = r[:, 0::9][:, :r[:, 1::9].shape[1]]     # duplicates
+    a[:, :20] = r[:, 100:120]                              # zero distances
+    return a, r
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 300, 2500), (1, 27, 1)],
+                         ids=["two-tiles", "one-candidate"])
+def test_nn_one_way_plain_matches_pallas(rng, b, n, m):
+    """Against nn_one_way_pallas in interpret mode: ties everywhere,
+    duplicate reference points, a ragged last tile; indices exact (ties
+    to the lowest index), values to 1e-7 relative (both subtract
+    directly)."""
+    a, r = _nn_tie_inputs(rng, b, n, max(m, 120))
+    r = r[:, :m]
+    with interpret(jcp):
+        wd, wi = jcp.nn_one_way_pallas(jnp.asarray(a), jnp.asarray(r))
+    gd, gi = tchamfer.nn_one_way_plain(t(a), t(r))
+    assert gi.dtype == torch.int32
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-7)
+    kd, ki = tchamfer.nn_one_way(t(a), t(r))
+    assert torch.equal(kd, gd) and torch.equal(ki, gi)
+
+
+def test_nn_one_way_plain_chunks_rows(rng, monkeypatch):
+    """Row chunks of the plain version (1 row and 7 rows at a time) give
+    the unchunked result."""
+    a, r = _nn_tie_inputs(rng, 2, 40, 150)
+    want = tchamfer.nn_one_way_plain(t(a), t(r))
+    for chunk in (150, 7 * 2 * 150):
+        monkeypatch.setattr(tchamfer, "_PLAIN_CHUNK", chunk)
+        got = tchamfer.nn_one_way_plain(t(a), t(r))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_nn_one_way_plain_matches_xla_path(rng):
+    """Against the JAX package's chunked matmul-form _nn_one_way on
+    tie-free data: indices exact, values to 1e-5 absolute (the matmul
+    form cancels |a|^2 + |b|^2 - 2ab in float32: an error of a few
+    float32 epsilons of |a|^2 + |b|^2, up to ~20 here)."""
+    a = rng.standard_normal((2, 200, 3)).astype(np.float32)
+    r = rng.standard_normal((2, 170, 3)).astype(np.float32)
+    wd, wi = jchamfer._nn_one_way(jnp.asarray(a), jnp.asarray(r), 64)
+    gd, gi = tchamfer.nn_one_way_plain(t(a), t(r))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), atol=1e-5)
+
+
+def test_nn_distance_matches_jax(rng):
+    """Values, indices and the saved-argmin VJP against
+    threepu.ops.chamfer.nn_distance (tie-free data, cotangents on both
+    distance outputs): distances to 1e-5 absolute (JAX's matmul form),
+    gradients to 1e-5 relative (the scatter-adds sum in another
+    order)."""
+    x1 = rng.standard_normal((2, 60, 3)).astype(np.float32)
+    x2 = rng.standard_normal((2, 45, 3)).astype(np.float32)
+    g1 = rng.standard_normal((2, 60)).astype(np.float32)
+    g2 = rng.standard_normal((2, 45)).astype(np.float32)
+    out, vjp = jax.vjp(lambda a, b: jchamfer.nn_distance(a, b),
+                       jnp.asarray(x1), jnp.asarray(x2))
+    i_zero = [np.zeros(o.shape, jax.dtypes.float0) for o in (out[1], out[3])]
+    want = vjp((jnp.asarray(g1), i_zero[0], jnp.asarray(g2), i_zero[1]))
+    a, b = t(x1).requires_grad_(), t(x2).requires_grad_()
+    d1, i1, d2, i2 = tchamfer.nn_distance(a, b)
+    for got, w in ((i1, out[1]), (i2, out[3])):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        assert not got.requires_grad
+    for got, w in ((d1, out[0]), (d2, out[2])):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(w),
+                                   atol=1e-5)
+    torch.autograd.backward([d1, d2], [t(g1), t(g2)])
+    for got, w in ((a.grad, want[0]), (b.grad, want[1])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-6)
 
 
 def test_normalize_and_gather_match(rng):

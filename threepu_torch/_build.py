@@ -1,10 +1,12 @@
 """Build and bind the CUDA kernels in ``threepu_torch/csrc``.
 
 All ``csrc/*.cu`` sources compile, at first use, into one shared library
-with a plain C interface::
+with a plain C interface: one nvcc per source, all started together,
+then one link::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
-         -shared -Xcompiler -fPIC -o _build/libthreepu_kernels_<hash>.so csrc/*.cu
+         -Xcompiler -fPIC -c -o <obj>/<name>.o csrc/<name>.cu    # each source
+    nvcc -shared -o _build/libthreepu_kernels_<hash>.so <obj>/*.o
 
 ``-fmad=false`` keeps every product and sum separately rounded, as the
 plain PyTorch versions compute them, so the kernels can match those
@@ -33,7 +35,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _library: Optional[ctypes.CDLL] = None
 
@@ -74,19 +76,35 @@ def build(ptxas_verbose: bool = False) -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if ptxas_verbose:
-        cmd.append("-Xptxas=-v")
-    cmd += ["-o", str(tmp), *map(str, _sources())]
+    nvcc = nvcc_path()
+    obj_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    verbose = ["-Xptxas=-v"] if ptxas_verbose else []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"threepu_torch: nvcc failed ({res.returncode}):"
-                           f"\n{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    if ptxas_verbose:
-        print(res.stderr, end="", flush=True)
+    jobs = []
+    for src in _sources():
+        cmd = [nvcc, *NVCC_FLAGS, *verbose, "-c", "-o",
+               str(obj_dir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE,
+                                           text=True)))
+    results = []
+    for cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        results.append((cmd, proc.returncode, stdout, stderr))
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp),
+            *(str(obj_dir / f"{src.stem}.o") for src in _sources())]
+    if all(rc == 0 for _, rc, _, _ in results):
+        res = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, res.returncode, res.stdout, res.stderr))
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    for cmd, rc, stdout, stderr in results:
+        if rc != 0:
+            raise RuntimeError(f"threepu_torch: nvcc failed ({rc}):\n"
+                               f"{' '.join(cmd)}\n{stdout}{stderr}")
+        if ptxas_verbose:
+            print(stderr, end="", flush=True)
     os.replace(tmp, out)
     print(f"threepu_torch: built {out.name} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)

@@ -16,7 +16,9 @@
 // the feature distances d_f = |xq - f|^2 of the K gathered feature rows,
 // h_s / h_f = mean over the sub-patch's N points of the min over K,
 // w = exp(-d_s / (h_s / 2)) * exp(-d_f / (h_f / 2)), w /= sum(w + 1e-5),
-// out[b, q, :] = sum_k w_k f_k.  Features stay float32.
+// out[b, q, :] = sum_k w_k f_k.  Features stay float32.  When w_out is not
+// null, the normalized weights w (B, N, K) are written there too: the
+// backward of the training step scatters w * grad into prev_feat.
 //
 // What bounds it on the H100: the selection.  At level 4 (B = 320
 // sub-patches, N = 312, M = 6240) that is 623 M candidate distances, each
@@ -56,7 +58,8 @@ interlevel_kernel(const float* __restrict__ q_xyz, const float* __restrict__ xq,
                   const float* __restrict__ prev_xyz,
                   const float* __restrict__ prev_feat,
                   const uint8_t* __restrict__ prev_dup, float* __restrict__ out,
-                  int* __restrict__ idx_out, int n, int group, int m, int c) {
+                  int* __restrict__ idx_out, float* __restrict__ w_out, int n,
+                  int group, int m, int c) {
   extern __shared__ float4 smem4[];
   float4* tile = smem4;                                        // kTile
   int* s_idx = reinterpret_cast<int*>(smem4 + kTile);          // n * K
@@ -201,6 +204,11 @@ interlevel_kernel(const float* __restrict__ q_xyz, const float* __restrict__ xq,
     }
 #pragma unroll
     for (int s = 0; s < K; ++s) w[s] = w[s] / denom;
+    if (w_out != nullptr && lane == 0) {
+      float* wo = w_out + (static_cast<size_t>(bsub) * n + q) * K;
+#pragma unroll
+      for (int s = 0; s < K; ++s) wo[s] = w[s];
+    }
     float* orow = out + (static_cast<size_t>(bsub) * n + q) * c;
     for (int ch = lane; ch < c; ch += 32) {
       float acc = 0.f;
@@ -215,7 +223,7 @@ interlevel_kernel(const float* __restrict__ q_xyz, const float* __restrict__ xq,
 template <int K>
 int launch(const float* q_xyz, const float* xq, const float* prev_xyz,
            const float* prev_feat, const uint8_t* prev_dup, float* out,
-           int* idx_out, int b, int n, int p, int m, int c,
+           int* idx_out, float* w_out, int b, int n, int p, int m, int c,
            cudaStream_t stream) {
   const int threads = (n + 31) / 32 * 32;
   const size_t smem = kTile * sizeof(float4) +
@@ -226,26 +234,29 @@ int launch(const float* q_xyz, const float* xq, const float* prev_xyz,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   interlevel_kernel<K><<<b, threads, smem, stream>>>(
-      q_xyz, xq, prev_xyz, prev_feat, prev_dup, out, idx_out, n, b / p, m, c);
+      q_xyz, xq, prev_xyz, prev_feat, prev_dup, out, idx_out, w_out, n, b / p,
+      m, c);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q_xyz (b, n, 3), xq (b, n, c), prev_xyz (p, m, 3), prev_feat (p, m, c)
-// float32, prev_dup (p, m) uint8 -> out (b, n, c) float32 and the picks
-// idx_out (b, n, k) int32, in rank order.  Needs p | b,
+// float32, prev_dup (p, m) uint8 -> out (b, n, c) float32, the picks
+// idx_out (b, n, k) int32, in rank order, and, unless w_out is null, their
+// weights w_out (b, n, k) float32.  Needs p | b,
 // 1 <= n <= 1024, 1 <= k <= min(m, 8) (the wrapper checks them).
 extern "C" int threepu_interlevel(const float* q_xyz, const float* xq,
                                   const float* prev_xyz, const float* prev_feat,
                                   const uint8_t* prev_dup, float* out,
-                                  int* idx_out, int b, int n, int p, int m,
-                                  int c, int k, cudaStream_t stream) {
+                                  int* idx_out, float* w_out, int b, int n,
+                                  int p, int m, int c, int k,
+                                  cudaStream_t stream) {
   switch (k) {
 #define THREEPU_K(K) \
   case K:            \
-    return launch<K>(q_xyz, xq, prev_xyz, prev_feat, prev_dup, out, idx_out, b, n, p, m, c, \
-                     stream);
+    return launch<K>(q_xyz, xq, prev_xyz, prev_feat, prev_dup, out, idx_out, \
+                     w_out, b, n, p, m, c, stream);
     THREEPU_K(1) THREEPU_K(2) THREEPU_K(3) THREEPU_K(4)
     THREEPU_K(5) THREEPU_K(6) THREEPU_K(7) THREEPU_K(8)
 #undef THREEPU_K

@@ -34,6 +34,21 @@ def reference_name(path: str) -> str:
     return name
 
 
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested mapping of arrays (a JAX parameter or gradient tree) ->
+    ``{"a/b/kernel": numpy array}``, the keys
+    :func:`state_dict_from_jax` reads: so gradients cross over by the
+    same names as parameters."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            flat.update(flatten_tree(value, path + "/"))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """Map flat JAX parameters (keys ``[params/]<path>/kernel|bias``;

@@ -1,7 +1,10 @@
 """The progressive upsampling cascade (port of
-``threepu/models/upsampler.py``: ``Level`` and the eval path of ``Net``).
+``threepu/models/upsampler.py``: ``Level`` and ``Net``, train and eval).
 
-Layout is channels-last ``(B, N, 3)``.  The eval cascade keeps the JAX
+Layout is channels-last ``(B, N, 3)``.  The train cascade cuts, at each
+level whose input exceeds ``max_num_point``, one kNN patch around a
+random seed point per batch element, with the matching gt patch.  The
+eval cascade keeps the JAX
 package's static-shape masking: outliers are masked out of sub-patch
 seeding instead of dropped, sub-patches beyond the reference's dynamic
 count (``true_sub``) are phantoms that never enter the merge and are
@@ -13,12 +16,14 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from threepu_torch.device import resolve_device
+from threepu_torch.io.weights import load_jax_checkpoint
 from threepu_torch.models.layers import DenseConv, DenseEdgeConv
 from threepu_torch.ops.chamfer import self_nn_dist2
 from threepu_torch.ops.distances import duplicate_mask
@@ -122,8 +127,9 @@ class Level(nn.Module):
 
 class Net(nn.Module):
     """Progressive cascade of ``log_step(max_up_ratio)`` Levels, named
-    ``levels.level_1 ...`` as in the reference.  Only the eval path
-    (:meth:`upsample`) is ported."""
+    ``levels.level_1 ...`` as in the reference.  :meth:`forward` runs the
+    train cascade (or, with ``train=False``, :meth:`upsample`, the eval
+    cascade)."""
 
     def __init__(self, max_up_ratio: int = 16, step_ratio: int = 2,
                  knn: int = 16, growth_rate: int = 12, dense_n: int = 3,
@@ -137,6 +143,67 @@ class Net(nn.Module):
             (f"level_{l}", Level(dense_n, growth_rate, knn, fm_knn,
                                  step_ratio))
             for l in range(1, num_levels + 1))
+
+    def forward(self, xyz: torch.Tensor, ratio: Optional[int] = None,
+                gt: Optional[torch.Tensor] = None, train: bool = True,
+                generator: Optional[torch.Generator] = None,
+                seed_idx: Optional[Sequence[torch.Tensor]] = None):
+        """Train cascade (``threepu/models/upsampler.py:294-336``):
+        ``xyz (B, K, 3)`` and ``gt (B, ratio*K, 3)`` -> ``(pred, gt
+        patch)``, both ``(B, min(K, max_num_point) * step_ratio, 3)`` once
+        a level re-patches, else ``(B, ratio*K, 3)`` and ``gt``.
+
+        Each re-patching level draws one seed point per element: from
+        ``seed_idx`` (one ``(B, 1)`` integer tensor per re-patching level,
+        in order) when given, else ``torch.randint`` with ``generator``.
+        ``train=False`` returns :meth:`upsample`'s result.
+        """
+        ratio = ratio or self.max_up_ratio
+        if not train:
+            return self.upsample(xyz, ratio)
+        if gt is None:
+            raise ValueError("the train cascade needs gt")
+        num_levels = int(math.log(ratio, self.step_ratio))
+        max_np = min(xyz.shape[1], self.max_num_point)
+        seeds = list(seed_idx) if seed_idx is not None else None
+
+        old_xyz = xyz
+        xyz, old_feats = self.levels["level_1"](xyz, xyz)
+        for l in range(2, num_levels + 1):
+            patch_xyz = xyz
+            if xyz.shape[1] > max_np:
+                b, n, _ = xyz.shape
+                if seeds is None:
+                    idx = torch.randint(0, n, (b, 1), generator=generator,
+                                        device=xyz.device)
+                elif seeds:
+                    idx = seeds.pop(0).to(xyz.device)
+                else:
+                    raise ValueError("seed_idx holds fewer tensors than the "
+                                     "cascade has re-patching levels")
+                gt_k = max_np * ratio // self.step_ratio ** l * self.step_ratio
+                patch_xyz, gt = self._extract_patch_train(xyz, max_np, gt,
+                                                          gt_k, idx)
+            norm, centroid, radius = normalize_point_batch_cl(patch_xyz)
+            new_xyz, feats = self.levels[f"level_{l}"](
+                patch_xyz, norm, (old_xyz, old_feats))
+            xyz = new_xyz * radius + centroid
+            old_xyz, old_feats = patch_xyz, feats
+        if seeds:
+            raise ValueError("seed_idx holds more tensors than the cascade "
+                             "has re-patching levels")
+        return xyz, gt
+
+    @staticmethod
+    def _extract_patch_train(xyz: torch.Tensor, k: int, gt: torch.Tensor,
+                             gt_k: int, seed_idx: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The ``k`` points of ``xyz`` and the ``gt_k`` points of ``gt``
+        nearest each element's seed point ``xyz[b, seed_idx[b, 0]]``."""
+        seeds = gather_nd(xyz, seed_idx)                     # (B, 1, 3)
+        patch = knn_group(seeds, xyz, k).neighbors[:, 0]
+        gt_patch = knn_group(seeds, gt, gt_k).neighbors[:, 0]
+        return patch, gt_patch
 
     @torch.no_grad()
     def upsample(self, xyz: torch.Tensor,
@@ -204,3 +271,16 @@ class Net(nn.Module):
         true_sub = torch.clamp((n_valid * 5) // k, 1, n_sub)
         seeds = gather_nd(xyz, fps(xyz.contiguous(), n_sub, mask))
         return knn_group(seeds, xyz, k, valid_mask=mask).neighbors, true_sub
+
+
+def load_net(weights: Optional[str] = None,
+             device: Optional[Union[str, torch.device]] = None,
+             **cfg) -> Net:
+    """``Net(**cfg)`` on ``device`` — the card unless another device
+    (``"cpu"``) is named — with the JAX checkpoint ``weights`` (an
+    ``.npz`` path) loaded strictly when given."""
+    dev = resolve_device(device)
+    net = Net(**cfg)
+    if weights is not None:
+        net.load_state_dict(load_jax_checkpoint(weights), strict=True)
+    return net.to(dev)

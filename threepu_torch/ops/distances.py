@@ -25,6 +25,14 @@ def pairwise_dist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return r_a - 2.0 * inner + r_b.transpose(-1, -2)
 
 
+def sq_dist3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared 3-D distance ``(dx*dx + dy*dy) + dz*dz`` over the last axis
+    of ``a - b`` (broadcast), rounded as the CUDA kernels round it
+    (``csrc/common.cuh``, built without fused multiply-add)."""
+    dx, dy, dz = (a - b).unbind(-1)
+    return dx * dx + dy * dy + dz * dz
+
+
 def direct_dist2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Squared distances ``(..., N, M)`` by direct subtraction: exact for
     equality (``d == 0`` iff the rows are equal).  Memory ``N*M*C``."""

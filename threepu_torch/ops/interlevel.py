@@ -19,7 +19,11 @@ sub-patch,
 
 Both versions return ``(interp, idx)``: the picks ``idx (B, N, k)``
 (int32, rank order) come out too, so the selection can be checked on
-its own.
+its own.  Both are differentiable as the JAX package's XLA branch is:
+only ``prev_feat`` receives a gradient, ``w * g`` scattered to the
+picked rows, because JAX stops the gradient of both weight factors.
+The kernel writes the weights ``w (B, N, k)`` as a third output, which
+the backward reads.
 
 Features stay float32 (the TPU kernel rounds them to bf16), and ``h_s``
 is the min over all k picks (the TPU fused kernel takes the rank-1
@@ -38,6 +42,7 @@ from typing import Tuple
 import torch
 
 from threepu_torch._build import Kernel, check_cuda_tensor
+from threepu_torch.ops.distances import sq_dist3
 from threepu_torch.ops.gather import batched_gather
 
 #: rank of a duplicate (or phantom) previous point: after every real one
@@ -47,41 +52,34 @@ MAX_K = 8
 MAX_N = 1024
 
 KERNEL = Kernel("threepu_interlevel",
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6,
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6,
                 source="threepu_torch/csrc/interlevel.cu",
                 replaces="threepu/ops/interlevel_pallas.py:94")
 
 
-def _sq3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Squared 3-D distance ``(dx*dx + dy*dy) + dz*dz`` over the last
-    axis, rounded as the kernel rounds it."""
-    dx, dy, dz = (a - b).unbind(-1)
-    return dx * dx + dy * dy + dz * dz
-
-
-def interlevel_plain(q_xyz: torch.Tensor, xq: torch.Tensor,
-                     prev_xyz: torch.Tensor, prev_feat: torch.Tensor,
-                     prev_dup: torch.Tensor, k: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``q_xyz (B, N, 3)``, ``xq (B, N, C)``, ``prev_xyz (P, M, 3)``,
-    ``prev_feat (P, M, C)``, bool ``prev_dup (P, M)`` with ``P | B``
-    (sub-patch ``b`` belongs to top patch ``b // (B // P)``) ->
-    ``(interp (B, N, C), idx (B, N, k) int32)``."""
+def _plain_picks(q_xyz, prev_xyz, prev_dup, k):
+    """The plain version's picks ``(P, G*N, k)``, rank order."""
     b, n, _ = q_xyz.shape
-    p, m, c = prev_feat.shape
-    group = b // p
-    q = q_xyz.reshape(p, group * n, 1, 3)
+    p = prev_xyz.shape[0]
+    q = q_xyz.reshape(p, b // p * n, 1, 3)
     idx = []
     for t in range(p):       # one top patch at a time bounds the memory
-        d = _sq3(q[t], prev_xyz[t][None])                    # (G*N, M)
+        d = sq_dist3(q[t], prev_xyz[t][None])                # (G*N, M)
         d = torch.where(prev_dup[t][None], torch.tensor(
             PENALTY, dtype=d.dtype, device=d.device), d)
         idx.append(torch.sort(d, dim=-1, stable=True).indices[:, :k])
-    idx = torch.stack(idx)                                   # (P, G*N, k)
+    return torch.stack(idx)
+
+
+def _plain(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, with_w=True):
+    """The plain version's ``(interp, idx, w)``."""
+    b, n, _ = q_xyz.shape
+    c = prev_feat.shape[-1]
+    idx = _plain_picks(q_xyz, prev_xyz, prev_dup, k)
     nbrs = batched_gather(prev_xyz, idx).reshape(b, n, k, 3)
     feats = batched_gather(prev_feat, idx).reshape(b, n, k, c)
 
-    d_s = _sq3(q_xyz[:, :, None, :], nbrs)                   # (B, N, k)
+    d_s = sq_dist3(q_xyz[:, :, None, :], nbrs)               # (B, N, k)
     diff = xq[:, :, None, :] - feats
     d_f = torch.sum(diff * diff, dim=-1)
     h_s = torch.mean(torch.amin(d_s, dim=-1), dim=-1)[:, None, None]
@@ -89,18 +87,12 @@ def interlevel_plain(q_xyz: torch.Tensor, xq: torch.Tensor,
     w = torch.exp(-d_s / (h_s / 2.0)) * torch.exp(-d_f / (h_f / 2.0))
     w = w / torch.sum(w + 1e-5, dim=-1, keepdim=True)
     interp = torch.sum(w[..., None] * feats, dim=-2)
-    return interp, idx.reshape(b, n, k).to(torch.int32)
+    return interp, idx.reshape(b, n, k).to(torch.int32), w
 
 
-def interlevel(q_xyz: torch.Tensor, xq: torch.Tensor,
-               prev_xyz: torch.Tensor, prev_feat: torch.Tensor,
-               prev_dup: torch.Tensor, k: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`interlevel_plain`'s result, by the CUDA kernel on CUDA
-    tensors (contiguous float32, bool ``prev_dup``; ``k <= 8``,
-    ``N <= 1024``)."""
-    if not q_xyz.is_cuda:
-        return interlevel_plain(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k)
+def _launch(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, with_w=True):
+    """The kernel's ``(interp, idx, w)``; ``w`` is None (and the kernel
+    writes none) unless ``with_w``."""
     for name, t, dt, nd in (("q_xyz", q_xyz, torch.float32, 3),
                             ("xq", xq, torch.float32, 3),
                             ("prev_xyz", prev_xyz, torch.float32, 3),
@@ -123,7 +115,62 @@ def interlevel(q_xyz: torch.Tensor, xq: torch.Tensor,
                          f"1 <= N <= {MAX_N}, got k={k}, M={m}, N={n}")
     out = torch.empty((b, n, c), dtype=torch.float32, device=q_xyz.device)
     idx = torch.empty((b, n, k), dtype=torch.int32, device=q_xyz.device)
+    w = (torch.empty((b, n, k), dtype=torch.float32, device=q_xyz.device)
+         if with_w else None)
     KERNEL(q_xyz.data_ptr(), xq.data_ptr(), prev_xyz.data_ptr(),
            prev_feat.data_ptr(), prev_dup.view(torch.uint8).data_ptr(),
-           out.data_ptr(), idx.data_ptr(), b, n, p, m, c, k)
-    return out, idx
+           out.data_ptr(), idx.data_ptr(), None if w is None else w.data_ptr(),
+           b, n, p, m, c, k)
+    return out, idx, w
+
+
+class _Interlevel(torch.autograd.Function):
+    """JAX's gradient of the skip and nothing else: the weights are
+    stop-gradiented there (``threepu/models/upsampler.py:58-61``), so only
+    ``prev_feat`` receives one, ``d prev_feat[p, idx] += w * g``."""
+
+    @staticmethod
+    def forward(ctx, q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, kernel):
+        # the weights are kept only where a backward can follow
+        with_w = ctx.needs_input_grad[3]
+        out, idx, w = (_launch if kernel else _plain)(
+            q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, with_w)
+        ctx.save_for_backward(idx, w)
+        ctx.prev_shape = prev_feat.shape
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g, _gidx):
+        idx, w = ctx.saved_tensors
+        p, m, c = ctx.prev_shape
+        b, n, k = idx.shape
+        rows = (idx.long().reshape(p, -1)
+                + torch.arange(p, device=idx.device)[:, None] * m)
+        src = (w[..., None] * g[:, :, None, :]).reshape(-1, c)
+        grad = torch.zeros((p * m, c), dtype=g.dtype, device=g.device)
+        grad.index_add_(0, rows.reshape(-1), src)
+        return None, None, None, grad.reshape(p, m, c), None, None, None
+
+
+def interlevel_plain(q_xyz: torch.Tensor, xq: torch.Tensor,
+                     prev_xyz: torch.Tensor, prev_feat: torch.Tensor,
+                     prev_dup: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``q_xyz (B, N, 3)``, ``xq (B, N, C)``, ``prev_xyz (P, M, 3)``,
+    ``prev_feat (P, M, C)``, bool ``prev_dup (P, M)`` with ``P | B``
+    (sub-patch ``b`` belongs to top patch ``b // (B // P)``) ->
+    ``(interp (B, N, C), idx (B, N, k) int32)``."""
+    return _Interlevel.apply(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k,
+                             False)
+
+
+def interlevel(q_xyz: torch.Tensor, xq: torch.Tensor,
+               prev_xyz: torch.Tensor, prev_feat: torch.Tensor,
+               prev_dup: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`interlevel_plain`'s result, by the CUDA kernel on CUDA
+    tensors (contiguous float32, bool ``prev_dup``; ``k <= 8``,
+    ``N <= 1024``)."""
+    return _Interlevel.apply(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k,
+                             q_xyz.is_cuda)
