@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``threepu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--profile STEPS]
+    python3 chip_smoke.py [--profile STEPS] [--profile-shapes SHAPES]
 
 Phases, in order; any failure ends the script with a non-zero exit and
 no result line:
@@ -20,7 +20,10 @@ no result line:
    ``prev_feat`` gradient of its backward; the one-way nearest
    neighbour of the Chamfer loss ((16, 624) x (16, 624), the train
    loss, and the JAX package's 80k output against the 80k ground truth)
-   must match exactly, values and indices.  Each kernel's time is
+   must match exactly, values and indices; the fused edge-conv chain
+   (B = 320 and B = 8 sub-patches of N = 312, k = 32, G = 12, n = 3, and
+   two small odd shapes with n = 1 and n = 2) must agree to 1e-5.  Each
+   kernel's time is
    printed beside its plain version's, the time of one PyTorch call
    computing the same function where there is one (``torch.topk`` for
    select, ``torch.cdist(...).min(-1)`` for the Chamfer kernel), and its
@@ -36,6 +39,9 @@ no result line:
       rows must lie within 1e-4 of JAX's (a flipped near-tie in a
       feature-space kNN moves a few), the sub-patches must hold at
       least 99% of JAX's points, and their real counts must be JAX's.
+      Run twice: on the decomposed edge convs, and with every edge conv
+      on the fused chain kernel (the tight check of that kernel inside
+      the net).
    b. The pipeline: held-out shape 0 (5000 points) upsampled 16x to
       80,000 points, chunk 8, G=8 re-stitch.  The launch counts of all
       three kernels must be above zero for that run, the output finite
@@ -45,6 +51,20 @@ no result line:
       its input is perturbed by 1e-6 (relative): float rounding flips
       near-ties of the re-stitch FPS, so this band holds the port to
       the surface, and (a) to the numbers.
+   c. File to file, with the edge-conv toggle on: the same shape written
+      to an ``.xyz`` file, ``threepu_torch.cli.main(["--phase", "test",
+      ...])`` at the same configuration, the two ``.ply`` files read
+      back.  The output must be finite, (80000, 3) and inside both
+      Chamfer bands of (b), the input file the processed input, the
+      edge-conv kernel launched 96 times (16 per chunk, 6 chunks) and
+      select, FPS and interlevel above zero.  Then the warm seconds per
+      shape with the toggle on, beside (b)'s with it off.
+   d. Bucketing: ``upsample_shape(..., bucket=1024)`` (5000 points pad
+      to 5120), toggle off: finite, (80000, 3), Chamfer distance to the
+      ground truth within 5% of the JAX package's.  With
+      ``--profile-shapes SHAPES``, that many warm shapes then run under
+      ``torch.profiler`` with the toggle off and on: device time per
+      shape by kind of kernel, and the device's idle share.
 
 5. Training, at full width with the trained weights and the JAX
    package's results frozen in ``tests/fixtures/torch_train_ref.npz``:
@@ -80,8 +100,8 @@ no result line:
       device's idle share of the unprofiled step, the top kernels.
 
 The last two lines of standard output are one JSON object per kernel
-(launches on the checked runs of phases 4b and 5b, error, times, bound)
-and ``{"ok": true, "device": {...}}``.
+(launches on the checked runs of phases 4b, 4c and 5b, error, times,
+bound) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -116,6 +136,14 @@ INTERLEVEL_TRAIN_CASE = (16, 1, 312)
 INTERLEVEL_BAND = 1e-5
 #: the train loss's nearest-neighbour shape (B, N) x (B, N)
 CHAMFER_TRAIN_CASE = (16, 624)
+#: the edge-conv chain (B, N, k, G, n): two small odd shapes, then the
+#: level-1 and the level-4 calls of a chunk; max abs band against the plain
+#: version, whose cuBLAS products sum in another order
+EDGECONV_CASES = ((3, 40, 5, 4, 1), (3, 40, 5, 4, 2), (8, 312, 32, 12, 3),
+                  (320, 312, 32, 12, 3))
+EDGECONV_BAND = 1e-5
+#: edge-conv launches of one 16x shape: 4 levels x 4 convs x 6 chunks
+EDGECONV_LAUNCHES = 96
 #: H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores,
 #: and device memory
 FP32_FLOPS = 67e12
@@ -318,6 +346,52 @@ def check_chamfer(a, b, card: str, reps: int) -> dict:
     return rep
 
 
+def edgeconv_inputs(dev, g, b, n_pts, k, growth, n):
+    import torch
+    z = torch.randn((b, n_pts, growth), generator=g, device=dev)
+    idx = torch.randint(0, n_pts, (b, n_pts, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    pts = torch.randn((b, n, n_pts, growth), generator=g, device=dev)
+    chain_w = 0.3 * torch.randn((n * (n - 1) // 2, growth, growth),
+                                generator=g, device=dev)
+    return z, idx, pts, chain_w, n, growth
+
+
+def check_edgeconv(dev, g, card: str) -> dict:
+    """The edge-conv chain kernel against its plain version at
+    ``EDGECONV_CASES``, within ``EDGECONV_BAND`` or raises.  Returns the
+    error, times and bound of the last case, the level-4 call."""
+    import torch
+    import threepu_torch.ops.edgeconv as ec_mod
+    for case in EDGECONV_CASES:
+        b, n_pts, k, growth, n = case
+        args = edgeconv_inputs(dev, g, *case)
+        got = ec_mod.edge_conv_chain(*args)
+        want = ec_mod.edge_conv_chain_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.shape != want.shape or not err <= EDGECONV_BAND:
+            raise AssertionError(f"edge conv {case}: max abs error {err} > "
+                                 f"{EDGECONV_BAND}")
+        del got, want
+        ms = cuda_ms(lambda: ec_mod.edge_conv_chain(*args), 20)
+        plain_ms = cuda_ms(lambda: ec_mod.edge_conv_chain_plain(*args), 5)
+        # per neighbour: n(n-1)/2 products of G x G (2 each), and per stage
+        # an add, a relu and a max per channel
+        ops = b * n_pts * k * (2.0 * growth * growth * n * (n - 1) / 2
+                               + 3.0 * n * growth)
+        nbytes = sum(t.numel() * t.element_size() for t in args[:4]) \
+            + b * n_pts * n * growth * 4
+        rep = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   **bound(ops, nbytes))
+        print(f"edge conv B={b} N={n_pts} k={k} G={growth} n={n}: max abs err "
+              f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}) [{card}]",
+              flush=True)
+    torch.cuda.empty_cache()
+    return rep
+
+
 def check_kernels(dev, card: str, fx) -> dict:
     """Phase 3: each kernel against its plain version; returns, per
     kernel, the error, times and bound at its headline shape."""
@@ -399,14 +473,16 @@ def check_kernels(dev, card: str, fx) -> dict:
     del big
     report["chamfer"] = check_chamfer(
         *chamfer_inputs(dev, g, *CHAMFER_TRAIN_CASE), card, 50)
+    report["edgeconv"] = check_edgeconv(dev, g, card)
     return report
 
 
 # ------------------------------------------------------------ phase 4
-def replay_cascade(net, fx, dev) -> list:
+def replay_cascade(net, fx, dev, chain_kernel: bool = False) -> list:
     """Phase 4a: ``net``'s eval cascade on the fixture's patch, each
     step fed JAX's input for it (``cascade_*`` of the fixture), as
-    ``Net.upsample`` runs the steps.  Returns, per level, the share of
+    ``Net.upsample`` runs the steps, the edge convs on the fused chain
+    kernel when ``chain_kernel``.  Returns, per level, the share of
     output rows within 1e-4 of JAX's, the largest row error, and for the
     sub-patching levels the share of JAX's sub-patch points that the
     port's sub-patches hold and both real sub-patch counts."""
@@ -425,7 +501,8 @@ def replay_cascade(net, fx, dev) -> list:
     stats = []
     with torch.no_grad():
         xyz = jax_("cascade_in")
-        out, feats = net.levels["level_1"](xyz, xyz)
+        out, feats = net.levels["level_1"](xyz, xyz,
+                                           chain_kernel=chain_kernel)
         stats.append(dict(level=1, **rows(out, "cascade_out_1")))
         old_xyz, old_feats, prev_invalid = xyz, feats, None
         for l in range(2, len(net.levels) + 1):
@@ -442,7 +519,7 @@ def replay_cascade(net, fx, dev) -> list:
                 prev_dup = prev_dup | prev_invalid
             out, feats = net.levels[f"level_{l}"](
                 flat, norm, (old_xyz, old_feats), prev_group=n_sub,
-                prev_dup=prev_dup)
+                prev_dup=prev_dup, chain_kernel=chain_kernel)
             stats.append(dict(level=l, **rows(out, f"cascade_out_{l}"),
                               sub_points=float(same.double().mean()),
                               true_sub=int(port_true_sub[0]),
@@ -469,67 +546,163 @@ def check_replay(stats: list) -> None:
                                  f"differ from JAX's: {st}")
 
 
-def end_to_end(net, fx, card: str, kernels: dict) -> dict:
-    """Phase 4b: the 16x pipeline on held-out shape 0; returns the
-    launch count of each kernel in the checked run."""
+def check_output(out, fx, dev, what: str, control: bool = True) -> None:
+    """A 16x output of the fixture's shape: ``(80000, 3)``, finite, its
+    Chamfer distance to the ground truth within 5% of the JAX package's
+    and, with ``control``, its Chamfer distance to the JAX output inside
+    the fixture's float-noise control; raises otherwise."""
     import torch
-    from threepu_torch.inference import upsample_shape
-
-    dev = next(net.parameters()).device
-    ratio, num_point, chunk = (int(fx["ratio"]), int(fx["num_point"]),
-                               int(fx["chunk"]))
-
-    def run():
-        out = upsample_shape(net, fx["input"], ratio, num_point=num_point,
-                             chunk=chunk)[1]
-        torch.cuda.synchronize()
-        return out
-
-    t0 = time.perf_counter()
-    run()                                            # first run: warm-up
-    first_s = time.perf_counter() - t0
-    for k in kernels.values():
-        k.launches = 0
-    out = run()
-    launches = {name: k.launches for name, k in kernels.items()}
-    print(f"main-path launches: {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the pipeline never launched {name}")
-    n_out = fx["input"].shape[0] * ratio
+    n_out = fx["input"].shape[0] * int(fx["ratio"])
     if out.shape != (n_out, 3) or not np.isfinite(out).all():
-        raise AssertionError(f"bad output: shape {out.shape}, finite "
+        raise AssertionError(f"{what}: bad output: shape {out.shape}, finite "
                              f"{bool(np.isfinite(out).all())}")
-
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        times.append(time.perf_counter() - t0)
-    best = min(times)
-
     o = torch.from_numpy(out).to(dev)
     cd_gt = chamfer(o, torch.from_numpy(fx["gt"]).to(dev))
     cd_jax = chamfer(o, torch.from_numpy(fx["jax_out"]).to(dev))
     jax_cd_gt = float(fx["jax_cd_gt"])
-    control = float(np.max(fx["jax_pert_cd"]))
-    print(f"16x {fx['input'].shape[0]} -> {n_out}: chamfer to gt {cd_gt:.6e} "
-          f"(JAX {jax_cd_gt:.6e}, ratio {cd_gt / jax_cd_gt:.4f}); chamfer "
-          f"to JAX output {cd_jax:.6e} ({cd_jax / jax_cd_gt:.4f} of JAX's "
-          f"distance to gt; JAX against itself under 1e-6 input noise: "
-          f"{control:.6e}, {control / jax_cd_gt:.4f})", flush=True)
-    print(f"16x {fx['input'].shape[0]} -> {n_out}: first run {first_s:.3f} s, "
-          f"warm s/shape {best:.4f} (runs {[round(t, 4) for t in times]}), "
-          f"{n_out / best:.1f} points/s [{card}]", flush=True)
+    ctl = float(np.max(fx["jax_pert_cd"]))
+    print(f"{what}: {fx['input'].shape[0]} -> {n_out}: chamfer to gt "
+          f"{cd_gt:.6e} (JAX {jax_cd_gt:.6e}, ratio {cd_gt / jax_cd_gt:.4f}); "
+          f"chamfer to JAX output {cd_jax:.6e} ({cd_jax / jax_cd_gt:.4f} of "
+          f"JAX's distance to gt; JAX against itself under 1e-6 input noise: "
+          f"{ctl:.6e}, {ctl / jax_cd_gt:.4f})", flush=True)
     if abs(cd_gt - jax_cd_gt) > 0.05 * jax_cd_gt:
-        raise AssertionError("chamfer to gt is not within 5% of JAX's")
+        raise AssertionError(f"{what}: chamfer to gt is not within 5% of "
+                             "JAX's")
     # float rounding flips near-ties of the re-stitch FPS, so outputs that
     # differ only by rounding are different samples of one surface: the
     # port must lie no farther from JAX than JAX lies from itself
-    if cd_jax > control:
-        raise AssertionError("chamfer to the JAX output exceeds the JAX "
-                             "float-noise control")
+    if control and cd_jax > ctl:
+        raise AssertionError(f"{what}: chamfer to the JAX output exceeds the "
+                             "JAX float-noise control")
+
+
+def run_shape(net, fx, **kwargs):
+    """``upsample_shape`` of the fixture's shape at its configuration
+    (16x, 312-point patches, chunk 8), ending in a device sync; returns
+    the upsampled points."""
+    import torch
+    from threepu_torch.inference import upsample_shape
+    out = upsample_shape(net, fx["input"], int(fx["ratio"]),
+                         num_point=int(fx["num_point"]),
+                         chunk=int(fx["chunk"]), **kwargs)[1]
+    torch.cuda.synchronize()
+    return out
+
+
+def warm_shape_s(net, fx) -> tuple:
+    """``(best, times)`` of three warm :func:`run_shape` runs, in
+    seconds."""
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_shape(net, fx)
+        times.append(time.perf_counter() - t0)
+    return min(times), times
+
+
+def checked_launches(kernels: dict, required, what: str) -> dict:
+    """The launch count of each of ``kernels`` since they were set to 0;
+    raises where one of ``required`` is 0."""
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"{what} launches: {launches}", flush=True)
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"{what} never launched {name}")
     return launches
+
+
+def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
+    """Phase 4b: the 16x pipeline on held-out shape 0; returns the
+    launch count of each kernel in the checked run, and the warm seconds
+    per shape."""
+    t0 = time.perf_counter()
+    run_shape(net, fx)                               # first run: warm-up
+    first_s = time.perf_counter() - t0
+    for k in kernels.values():
+        k.launches = 0
+    out = run_shape(net, fx)
+    launches = checked_launches(kernels, ("select", "fps", "interlevel"),
+                                "main-path")
+    check_output(out, fx, next(net.parameters()).device, "16x pipeline")
+    best, times = warm_shape_s(net, fx)
+    n_out = out.shape[0]
+    print(f"16x {fx['input'].shape[0]} -> {n_out}: first run {first_s:.3f} s, "
+          f"warm s/shape {best:.4f} (runs {[round(t, 4) for t in times]}), "
+          f"{n_out / best:.1f} points/s [{card}]", flush=True)
+    return launches, best
+
+
+def file_to_file(net, fx, card: str, kernels: dict, off_s: float) -> dict:
+    """Phase 4c: the fixture's shape from an ``.xyz`` file to ``.ply``
+    files through ``threepu_torch.cli.main``, the edge-conv toggle on;
+    returns the launch count of each kernel in that run.  ``net`` and
+    ``off_s`` (phase 4b's warm seconds per shape, toggle off) serve the
+    timing that follows."""
+    import tempfile
+    import threepu_torch.ops.edgeconv as ec_mod
+    from threepu_torch import cli
+    from threepu_torch.io import read_ply
+
+    dev = next(net.parameters()).device
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(ec_mod, "ENABLED", True):
+        os.mkdir(os.path.join(tmp, "shapes"))
+        np.savetxt(os.path.join(tmp, "shapes", "shape0.xyz"), fx["input"])
+        for k in kernels.values():
+            k.launches = 0
+        cli.main(["--phase", "test", "--ckpt", WEIGHTS, "--test_data",
+                  os.path.join(tmp, "shapes", "*.xyz"), "--num_point",
+                  str(int(fx["num_point"])), "--up_ratio",
+                  str(int(fx["ratio"])), "--knn", str(NET["knn"]), "--chunk",
+                  str(int(fx["chunk"])), "--result_dir",
+                  os.path.join(tmp, "out")])
+        launches = checked_launches(
+            kernels, ("select", "fps", "interlevel", "edgeconv"),
+            "file-to-file")
+        out = read_ply(os.path.join(tmp, "out", "shapes", "shape0.ply"))
+        inp = read_ply(os.path.join(tmp, "out", "shapes", "shape0_input.ply"))
+        if launches["edgeconv"] != EDGECONV_LAUNCHES:
+            raise AssertionError(f"file-to-file launched the edge-conv kernel "
+                                 f"{launches['edgeconv']} times, not "
+                                 f"{EDGECONV_LAUNCHES}")
+        # the processed input: normalized and denormalized in float32
+        if inp.shape != fx["input"].shape or not np.allclose(
+                inp, fx["input"], rtol=0.0, atol=1e-6):
+            raise AssertionError("file-to-file: the input file is not the "
+                                 "processed input")
+        check_output(out, fx, dev, "file-to-file, edge-conv kernel on")
+        on_s, times = warm_shape_s(net, fx)
+    print(f"16x warm s/shape, edge-conv kernel on {on_s:.4f} (runs "
+          f"{[round(t, 4) for t in times]}), off {off_s:.4f} (phase 4b) "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def bucketed(net, fx, card: str) -> None:
+    """Phase 4d: the fixture's shape through ``bucket=1024`` (5000 points
+    pad to 5120), toggle off.  The padded distance matrices round apart
+    from the exact-size run's and flip near-ties, so the output is held
+    to the ground truth, not to the JAX output."""
+    t0 = time.perf_counter()
+    out = run_shape(net, fx, bucket=1024)
+    print(f"bucketed run {time.perf_counter() - t0:.3f} s [{card}]",
+          flush=True)
+    check_output(out, fx, next(net.parameters()).device, "bucket=1024",
+                 control=False)
+
+
+def profile_shapes(net, fx, shapes: int, card: str) -> None:
+    """``shapes`` warm 16x shapes under ``torch.profiler``, the edge-conv
+    toggle off and then on (:func:`profile_steps`)."""
+    import threepu_torch.ops.edgeconv as ec_mod
+    for on in (False, True):
+        with mock.patch.object(ec_mod, "ENABLED", on):
+            best, _ = warm_shape_s(net, fx)
+            print(f"16x shape, edge-conv kernel {'on' if on else 'off'}:",
+                  flush=True)
+            profile_steps(lambda: run_shape(net, fx), shapes, best * 1e3,
+                          card, "16x shapes")
 
 
 # ------------------------------------------------------------ phase 5
@@ -755,6 +928,8 @@ def check_pinned(st: dict) -> None:
 KINDS = (("select kernel", ("select_kernel",)),
          ("interlevel kernel", ("interlevel_kernel",)),
          ("chamfer kernel", ("nn_kernel",)),
+         ("fps kernel", ("fps_kernel",)),
+         ("edge-conv kernel", ("edgeconv_kernel",)),
          ("cuBLAS GEMM", ("gemm", "xmma", "cutlass")),
          ("sorts", ("sort",)),
          ("memcpy, memset", ("memcpy", "memset")),
@@ -783,9 +958,10 @@ def union_us(intervals) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def profile_steps(step, steps: int, step_ms: float, card: str) -> None:
-    """``steps`` calls of ``step`` under ``torch.profiler``: device time
-    per step by kind of kernel, the device-busy time (the union of all
+def profile_steps(step, steps: int, step_ms: float, card: str,
+                  what: str = "train steps") -> None:
+    """``steps`` calls of ``step`` (``what`` names them) under
+    ``torch.profiler``: device time per step by kind of kernel, the device-busy time (the union of all
     device intervals), its idle share against ``step_ms`` (the unprofiled
     step) and the ten kernels with the most device time."""
     import torch
@@ -812,7 +988,8 @@ def profile_steps(step, steps: int, step_ms: float, card: str) -> None:
     if not intervals:
         raise RuntimeError("the profiler recorded no device time")
     busy_ms = union_us(intervals) / 1e3 / steps
-    print(f"profile, {steps} train steps: device busy {busy_ms:.3f} ms/step, "
+    print(f"profile, {steps} {what}: device busy {busy_ms:.3f} ms/step, "
+          f"{len(intervals) / steps:.0f} device ops/step, "
           f"idle share {1 - busy_ms / step_ms:.4f} of the unprofiled "
           f"{step_ms:.3f} ms/step [{card}]", flush=True)
     print("| Device time per step | ops | ms | share of busy |")
@@ -919,6 +1096,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="also profile this many warm train steps (phase 5c)")
+    ap.add_argument("--profile-shapes", type=int, default=0, metavar="SHAPES",
+                    help="also profile this many warm 16x shapes, edge-conv "
+                         "kernel off and on (after phase 4d)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -928,6 +1108,7 @@ def main() -> int:
     from threepu_torch import _build, require_cuda
     from threepu_torch.device import card_line
     import threepu_torch.ops.chamfer as ch_mod
+    import threepu_torch.ops.edgeconv as ec_mod
     import threepu_torch.ops.fps as fps_mod
     import threepu_torch.ops.interlevel as il_mod
     import threepu_torch.ops.select as sel_mod
@@ -947,25 +1128,35 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     kernels = {"select": sel_mod.KERNEL, "fps": fps_mod.KERNEL,
-               "interlevel": il_mod.KERNEL, "chamfer": ch_mod.KERNEL}
+               "interlevel": il_mod.KERNEL, "chamfer": ch_mod.KERNEL,
+               "edgeconv": ec_mod.KERNEL}
     fx = np.load(FIXTURE)
     report = check_kernels(dev, card, fx)
 
     # 4. end to end
     from threepu_torch.models import load_net
     net = load_net(WEIGHTS, **NET).eval()
-    stats = replay_cascade(net, fx, dev)
-    for st in stats:
-        print(f"cascade replay {st} [{card}]", flush=True)
-    check_replay(stats)
-    eval_launches = end_to_end(net, fx, card, {
-        k: kernels[k] for k in ("select", "fps", "interlevel")})
+    for chain_kernel in (False, True):
+        stats = replay_cascade(net, fx, dev, chain_kernel)
+        for st in stats:
+            print(f"cascade replay, edge-conv kernel "
+                  f"{'on' if chain_kernel else 'off'} {st} [{card}]",
+                  flush=True)
+        check_replay(stats)
+    eval_kernels = {k: kernels[k] for k in ("select", "fps", "interlevel",
+                                            "edgeconv")}
+    eval_launches, off_s = end_to_end(net, fx, card, eval_kernels)
+    file_launches = file_to_file(net, fx, card, eval_kernels, off_s)
+    bucketed(net, fx, card)
+    if args.profile_shapes:
+        profile_shapes(net, fx, args.profile_shapes, card)
 
     # 5. training
     train_launches = train_checks(fx, np.load(TRAIN_FIXTURE), card, kernels,
                                   args.profile)
 
     by_path = {name: {"eval": eval_launches.get(name, 0),
+                      "file": file_launches.get(name, 0),
                       "train": train_launches[name]} for name in kernels}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k.source, replaces=k.replaces,

@@ -112,6 +112,39 @@ def test_upsample_shape_jitter_is_seeded(golden):
     assert np.abs(a[0] - pts).max() <= 0.005 * furthest + 1e-6
 
 
+@pytest.mark.parametrize("groups", [None, 2], ids=["exact", "G2"])
+def test_bucketed_shape_equals_exact_and_matches_jax(golden, groups):
+    """``bucket=64`` pads the 96-point shape to 128 rows.  Inside the port
+    the bucketed output equals the exact-size one bit for bit on the CPU
+    (FPS picks are prefix-consistent, masked points cannot be picked), and
+    it agrees with JAX's bucketed output as a point set: Chamfer distance
+    below 1e-9 (rows to 3e-5 where no tie flips), as does the processed
+    input to 1e-6."""
+    net, params, tnet, pts = golden
+    shape = pts * 3.0 + 1.5
+    kw = dict(num_point=32, chunk=4, restitch_groups=groups)
+    td, tu = tinf.upsample_shape(tnet, shape, 4, bucket=64, **kw)
+    ed, eu = tinf.upsample_shape(tnet, shape, 4, **kw)
+    assert tu.shape == (384, 3)
+    np.testing.assert_array_equal(td, ed)
+    np.testing.assert_array_equal(tu, eu)
+    jd, ju = jinf.upsample_shape(net, params, shape, 4, bucket=64, **kw)
+    np.testing.assert_allclose(td, jd, atol=1e-6)
+    cd = ((cKDTree(ju).query(tu)[0] ** 2).mean()
+          + (cKDTree(tu).query(ju)[0] ** 2).mean())
+    assert cd < 1e-9
+    # a shape already on a bucket boundary takes the exact path
+    same = tinf.upsample_shape(tnet, shape, 4, bucket=32, **kw)[1]
+    np.testing.assert_array_equal(same, eu)
+
+
+@pytest.mark.parametrize("n,quantum", [(5000, 1024), (5120, 1024), (1, 1024),
+                                       (96, 64), (1025, 1)])
+def test_bucket_size_matches(n, quantum):
+    assert tinf.bucket_size(n, quantum) == jinf.bucket_size(n, quantum)
+    assert tinf.bucket_size(n) == jinf.bucket_size(n)
+
+
 @pytest.mark.parametrize("n,num_point,chunk", [(5000, 312, 8), (96, 32, 4),
                                                (5000, 312, None), (300, 312, 8),
                                                (1000, 312, 3)])
@@ -171,6 +204,23 @@ def test_cascade_replay_matches_fixture():
     assert [st["level"] for st in stats] == [1, 2, 3, 4]
     smoke.check_replay(stats)
     assert all(st["sub_points"] == 1.0 for st in stats[1:])
+
+
+def test_cascade_replay_with_the_chain_flag_matches_fixture():
+    """The same replay with every edge conv on the fused chain (on the CPU
+    its plain version): the same bands, and the rows of the decomposed
+    replay to 1e-5."""
+    smoke = _chip_smoke()
+    net = TNet(**smoke.NET).eval()
+    net.load_state_dict(load_jax_checkpoint(smoke.WEIGHTS), strict=True)
+    fx = np.load(smoke.FIXTURE)
+    stats = smoke.replay_cascade(net, fx, torch.device("cpu"),
+                                 chain_kernel=True)
+    smoke.check_replay(stats)
+    off = smoke.replay_cascade(net, fx, torch.device("cpu"))
+    for a, b in zip(stats, off):
+        assert abs(a["max_abs_err"] - b["max_abs_err"]) <= 1e-5
+        assert a["rows_1e4"] == pytest.approx(b["rows_1e4"], abs=2e-3)
 
 
 @pytest.mark.parametrize("field,value", [("rows_1e4", 0.98),
@@ -261,7 +311,8 @@ def test_library_path_follows_the_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     sources = {p.name for p in _build.CSRC_DIR.glob("*.cu")}
-    assert {"select.cu", "fps.cu", "interlevel.cu", "chamfer.cu"} <= sources
+    assert {"select.cu", "fps.cu", "interlevel.cu", "chamfer.cu",
+            "edgeconv.cu"} <= sources
 
 
 class _FakeLib:

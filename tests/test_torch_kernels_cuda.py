@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import threepu_torch.ops.chamfer as tcham
+import threepu_torch.ops.edgeconv as tec
 import threepu_torch.ops.fps as tfps
 import threepu_torch.ops.interlevel as til
 import threepu_torch.ops.select as tsel
@@ -211,6 +212,84 @@ def test_nn_distance_backward_on_gpu_matches_cpu(dev, gen):
         grads.append((a.grad.cpu(), b.grad.cpu()))
     for g, c in zip(*grads):
         torch.testing.assert_close(g, c, atol=1e-6, rtol=1e-6)
+
+
+def _chain_inputs(gen, dev, b, num_n, k, n, g):
+    z = torch.randn((b, num_n, g), generator=gen, device=dev)
+    # one column more than k, cut off as the edge conv drops the self
+    # neighbour: a view that is not contiguous
+    idx = torch.randint(0, num_n, (b, num_n, k + 1), generator=gen,
+                        device=dev, dtype=torch.int32)[..., 1:]
+    pts = [torch.randn((b, num_n, g), generator=gen, device=dev)
+           for _ in range(n)]
+    chain_w = [0.3 * torch.randn((g, g), generator=gen, device=dev)
+               for _ in range(n * (n - 1) // 2)]
+    return z, idx, pts, chain_w
+
+
+@pytest.mark.parametrize("b,num_n,k,n,g", [
+    (8, 312, 32, 3, 12), (3, 40, 5, 1, 4), (3, 40, 5, 2, 4), (2, 33, 7, 3, 5),
+    (2, 50, 40, 4, 20), (2, 17, 1, 4, 32), (1, 1, 1, 2, 1), (70, 9, 33, 3, 24)],
+    ids=["level1", "n1", "n2", "odd-g", "k-over-warp", "widest", "ones",
+         "g24"])
+def test_edge_conv_chain_kernel_matches_plain(dev, gen, b, num_n, k, n, g):
+    """Every stage count and padded width the kernel is instantiated for,
+    widths that are no multiple of 4 (scalar loads), k above and below a
+    warp, a sliced index view: max abs 1e-5 against the plain version (the
+    kernel sums its products in another order than cuBLAS)."""
+    z, idx, pts, chain_w = _chain_inputs(gen, dev, b, num_n, k, n, g)
+    assert idx.numel() == 1 or not idx.is_contiguous()
+    before = tec.KERNEL.launches
+    got = tec.edge_conv_chain(z, idx, pts, chain_w, n, g)
+    assert tec.KERNEL.launches == before + 1
+    want = tec.edge_conv_chain_plain(z, idx, pts, chain_w, n, g)
+    assert got.shape == (b, num_n, n * g)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    # int64 indices and stacked tensors are the same call
+    again = tec.edge_conv_chain(z, idx.long(), torch.stack(pts, 1),
+                                torch.stack(chain_w) if chain_w
+                                else z.new_zeros((0, g, g)), n, g)
+    assert torch.equal(again, got)
+
+
+def test_edge_conv_chain_kernel_rejects_what_it_does_not_take(dev, gen):
+    z, idx, pts, chain_w = _chain_inputs(gen, dev, 2, 10, 3, 2, 4)
+    before = tec.KERNEL.launches
+    with pytest.raises(ValueError, match="n=5"):
+        tec.edge_conv_chain(z, idx, pts, chain_w, 5, 4)
+    with pytest.raises(ValueError, match="g=33"):
+        tec.edge_conv_chain(z, idx, pts, chain_w, 2, 33)
+    with pytest.raises(ValueError, match="float32"):
+        tec.edge_conv_chain(z.double(), idx, pts, chain_w, 2, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tec.edge_conv_chain(z, idx.cpu(), pts, chain_w, 2, 4)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tec.edge_conv_chain(z.clone().requires_grad_(), idx, pts, chain_w, 2,
+                            4)
+    assert tec.KERNEL.launches == before
+
+
+def test_pipeline_with_the_chain_kernel_on_gpu(dev, monkeypatch):
+    """The golden-scale pipeline on the GPU with the edge-conv toggle on:
+    16 chain launches per chunk, and the output of the toggle-off run to
+    float32 rounding."""
+    from threepu_torch.inference import upsample_point_cloud
+    from threepu_torch.models import Net
+    torch.manual_seed(0)
+    net = Net(max_up_ratio=4, step_ratio=2, knn=8, growth_rate=4, dense_n=2,
+              max_num_point=32, fm_knn=3).eval().to(dev)
+    pts = np.random.default_rng(1234).standard_normal((96, 3)).astype(
+        np.float32)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    xyz = torch.from_numpy(pts).to(dev)
+    before = tec.KERNEL.launches
+    want = upsample_point_cloud(net, xyz, 4, 32, 384, chunk=4)
+    assert tec.KERNEL.launches == before
+    monkeypatch.setattr(tec, "ENABLED", True)
+    got = upsample_point_cloud(net, xyz, 4, 32, 384, chunk=4)
+    assert tec.KERNEL.launches == before + 8 * 3      # 9 patches pad to 12
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4)
 
 
 def test_train_step_on_gpu_matches_cpu(dev):

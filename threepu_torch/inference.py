@@ -110,19 +110,33 @@ def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
     return gather_nd(merged, final_idx)[0]
 
 
+def bucket_size(n: int, quantum: int = 1024) -> int:
+    """``n`` rounded up to the next multiple of ``quantum``."""
+    return -(-n // quantum) * quantum
+
+
 def upsample_shape(net: Net, points: np.ndarray, ratio: int,
                    num_point: int = 312, patch_num_ratio: float = 3.0,
                    chunk: Optional[int] = 8,
                    num_shape_point: Optional[int] = None,
                    jitter: bool = False, jitter_sigma: float = 0.0025,
                    jitter_max: float = 0.005, drop_out: float = 1.0,
-                   seed: int = 0,
+                   seed: int = 0, bucket: Optional[int] = None,
                    restitch_groups: Optional[int] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-facing flow of the reference's ``test()``: optional FPS
     drop-out to ``num_shape_point * drop_out`` points, normalize,
     optional jitter (numpy, seeded by ``seed``), the device pipeline,
     denormalize.  Runs on the device that holds ``net``.
+
+    ``bucket`` (a point-count quantum, such as 1024) zero-pads the shape
+    to the next multiple and masks the padding out of seed FPS, grouping
+    and the final FPS, so that every size of a bucket runs at one set of
+    tensor shapes.  FPS picks are prefix-consistent and masked points
+    cannot be picked, so the result has the selection semantics of the
+    exact size: bit-identical on the CPU; on the card the padded
+    distance matrices may round apart and flip near-ties, and the
+    outputs then agree as point sets.
 
     Returns ``(input points as processed, upsampled points)``, both in
     the original frame.
@@ -141,9 +155,22 @@ def upsample_shape(net: Net, points: np.ndarray, ratio: int,
         data = pc_utils.jitter_perturbation_point_cloud(
             data[None], np.random.default_rng(seed), sigma=jitter_sigma,
             clip=jitter_max, is_2D=is_2d)[0]
-    up = upsample_point_cloud(
-        net, torch.from_numpy(np.ascontiguousarray(data)).to(dev), ratio,
-        num_point, n_keep * ratio, patch_num_ratio=patch_num_ratio,
-        chunk=chunk, restitch_groups=restitch_groups)
+    num_out = n_keep * ratio
+    n_real = data.shape[0]
+    kwargs = dict(patch_num_ratio=patch_num_ratio, chunk=chunk,
+                  restitch_groups=restitch_groups)
+    if bucket is not None and bucket_size(n_real, bucket) != n_real:
+        n_b = bucket_size(n_real, bucket)
+        padded = np.zeros((n_b, 3), np.float32)
+        padded[:n_real] = data
+        up = upsample_point_cloud(
+            net, torch.from_numpy(padded).to(dev), ratio, num_point,
+            n_b * ratio, valid_n=n_real,
+            valid_patches=plan_patches(n_real, num_point, patch_num_ratio)[0],
+            **kwargs)[:num_out]
+    else:
+        up = upsample_point_cloud(
+            net, torch.from_numpy(np.ascontiguousarray(data)).to(dev), ratio,
+            num_point, num_out, **kwargs)
     up = up.cpu().numpy() * furthest + centroid
     return data * furthest + centroid, up

@@ -15,6 +15,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from threepu_torch.ops.edgeconv import edge_conv_chain
 from threepu_torch.ops.gather import batched_gather
 from threepu_torch.ops.knn import knn_group
 
@@ -70,16 +71,30 @@ class DenseEdgeConv(nn.Module):
                                    for i in range(1, n)]
         self.mlps = nn.ModuleList(Conv1x1(i, growth_rate) for i in ins)
 
-    def forward(self, x: torch.Tensor, dup_mask: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, dup_mask: Optional[torch.Tensor] = None,
+                chain_kernel: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``x (B, N, C)`` -> ``(features (B, N, C + n*growth),
-        idx (B, N, k))``."""
+        idx (B, N, k))``.
+
+        ``chain_kernel`` sends everything per neighbour to the fused,
+        forward-only :func:`~threepu_torch.ops.edgeconv.edge_conv_chain`
+        (the JAX package's ``pallas=True``); only the per-point products
+        stay here.  Eval paths set it, under ``torch.no_grad()``."""
         g, c = self.growth_rate, x.shape[-1]
         idx = knn_group(x, x, self.k + 1, unique=True, dup_mask=dup_mask,
                         with_neighbors=False).idx[..., 1:]
         w = [mlp.matrix() for mlp in self.mlps]
         b = [mlp.bias for mlp in self.mlps]
         wc, wd = w[0][:c], w[0][c:]
+        if chain_kernel:
+            pts = [x @ (wc - wd) + b[0]]
+            chain_w = []
+            for i in range(1, self.n):
+                pts.append(x @ w[i][g * i:] + b[i])
+                chain_w += [w[i][g * j:g * (j + 1)] for j in range(i)]
+            pooled = edge_conv_chain(x @ wd, idx, pts, chain_w, self.n, g)
+            return torch.cat([pooled, x], dim=-1), idx
         zn = batched_gather(x @ wd, idx)                     # (B, N, k, G)
         point_term = x @ (wc - wd) + b[0]                    # (B, N, G)
         gs: List[torch.Tensor] = [torch.relu(zn + point_term[..., None, :])]

@@ -25,6 +25,7 @@ from torch import nn
 from threepu_torch.device import resolve_device
 from threepu_torch.io.weights import load_jax_checkpoint
 from threepu_torch.models.layers import DenseConv, DenseEdgeConv
+from threepu_torch.ops import edgeconv
 from threepu_torch.ops.chamfer import self_nn_dist2
 from threepu_torch.ops.distances import duplicate_mask
 from threepu_torch.ops.fps import _dispatch_fps, fps
@@ -76,7 +77,8 @@ class Level(nn.Module):
                 previous_level4: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
                 prev_group: int = 1,
-                prev_dup: Optional[torch.Tensor] = None
+                prev_dup: Optional[torch.Tensor] = None,
+                chain_kernel: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``xyz``/``xyz_normalized (B, N, 3)``: the input points, raw
         and normalized.  ``previous_level4 = (prev_xyz (B / prev_group,
@@ -84,7 +86,8 @@ class Level(nn.Module):
         skip, where each run of ``prev_group`` consecutive batch elements
         shares one previous set; ``prev_dup (B / prev_group, M)`` marks
         previous points that must never be picked (computed here with
-        :func:`duplicate_mask` when not given).
+        :func:`duplicate_mask` when not given).  ``chain_kernel`` goes
+        to the four edge convs (forward-only; eval paths).
 
         Returns ``(upsampled xyz (B, N*r, 3) in the normalized frame,
         point features (B, N, C))``.
@@ -94,11 +97,11 @@ class Level(nn.Module):
         # serves every feature-space kNN of the level
         dup = duplicate_mask(xyz_normalized)
         x = self.layer0(xyz_normalized)
-        y, _ = self.layer1(x, dup)
+        y, _ = self.layer1(x, dup, chain_kernel)
         x = torch.cat([y, x], dim=-1)
         for i in (2, 3, 4):
             prep = getattr(self, f"layer{i}_prep")
-            y, _ = getattr(self, f"layer{i}")(prep(x), dup)
+            y, _ = getattr(self, f"layer{i}")(prep(x), dup, chain_kernel)
             x = torch.cat([y, x], dim=-1)
 
         if previous_level4 is not None and self.fm_knn > 0:
@@ -209,22 +212,27 @@ class Net(nn.Module):
     def upsample(self, xyz: torch.Tensor,
                  ratio: Optional[int] = None) -> torch.Tensor:
         """Eval cascade: normalized patches ``(P, N, 3)`` ->
-        ``(P, N*ratio, 3)`` in the same frame."""
+        ``(P, N*ratio, 3)`` in the same frame.  The edge convs take the
+        fused chain kernel when :func:`edgeconv.enabled_for` says so,
+        read once per call."""
         ratio = ratio or self.max_up_ratio
         num_levels = int(math.log(ratio, self.step_ratio))
         p, num_point, _ = xyz.shape
         max_np = min(num_point, self.max_num_point)
         dev = xyz.device
+        chain_kernel = edgeconv.enabled_for(xyz)
 
         old_xyz = xyz
-        xyz, old_feats = self.levels["level_1"](xyz, xyz)
+        xyz, old_feats = self.levels["level_1"](xyz, xyz,
+                                                chain_kernel=chain_kernel)
         prev_invalid = None
         for l in range(2, num_levels + 1):
             level = self.levels[f"level_{l}"]
             n_cur = xyz.shape[1]
             if n_cur <= max_np:
                 norm, centroid, radius = normalize_point_batch_cl(xyz)
-                new_xyz, feats = level(xyz, norm, (old_xyz, old_feats))
+                new_xyz, feats = level(xyz, norm, (old_xyz, old_feats),
+                                       chain_kernel=chain_kernel)
                 old_xyz, old_feats, prev_invalid = xyz, feats, None
                 xyz = new_xyz * radius + centroid
                 continue
@@ -238,7 +246,8 @@ class Net(nn.Module):
             if prev_invalid is not None:
                 prev_dup = prev_dup | prev_invalid
             new_xyz, feats = level(flat, norm, (old_xyz, old_feats),
-                                   prev_group=n_sub, prev_dup=prev_dup)
+                                   prev_group=n_sub, prev_dup=prev_dup,
+                                   chain_kernel=chain_kernel)
             new_xyz = new_xyz * radius + centroid
             # merge the sub-patches of each top patch, then re-stitch by
             # FPS over the real sub-patches only

@@ -23,6 +23,16 @@ from threepu_torch.ops.select import MAX_K, select
 PENALTY = 1e30
 #: the JAX gate's bound on ``M * ceil(N / 128) * 128`` per selection
 _SELECT_MAX_BLOCK = 1 << 20
+#: whether gated selections go to the selection kernel at all
+EXACT_SELECT_KERNEL = True
+
+
+def set_exact_select_kernel(enabled: bool) -> None:
+    """Route gated exact selections through the selection kernel (the
+    default), or every selection through the stable sort: the same
+    results bit for bit (the JAX package's ``set_exact_select_pallas``)."""
+    global EXACT_SELECT_KERNEL
+    EXACT_SELECT_KERNEL = bool(enabled)
 
 
 class KnnResult(NamedTuple):
@@ -34,7 +44,8 @@ class KnnResult(NamedTuple):
 def exact_select(d: torch.Tensor, k: int):
     """``(values, int32 idx)`` of the k smallest per row of ``d (..., M, N)``."""
     m, n = d.shape[-2:]
-    if k <= MAX_K and m >= 8 and m * (-(-n // 128) * 128) <= _SELECT_MAX_BLOCK:
+    if (EXACT_SELECT_KERNEL and k <= MAX_K and m >= 8
+            and m * (-(-n // 128) * 128) <= _SELECT_MAX_BLOCK):
         return select(d, k)
     values, idx = torch.sort(d, dim=-1, stable=True)
     return values[..., :k], idx[..., :k].to(torch.int32)

@@ -1,5 +1,5 @@
 """Host-side (numpy) point-cloud helpers (port of the parts of
-``threepu/utils/pc_utils.py`` that inference uses)."""
+``threepu/utils/pc_utils.py`` that inference and file loading use)."""
 
 from __future__ import annotations
 
@@ -31,3 +31,32 @@ def jitter_perturbation_point_cloud(batch_data: np.ndarray,
     jitter = jitter.astype(batch_data.dtype)
     jitter[:, :, chn:] = 0
     return batch_data + jitter
+
+
+class FarthestSampler:
+    """Furthest point sampling in numpy from a random first point (drawn
+    from numpy's global generator); downsamples a cloud on the host."""
+
+    @staticmethod
+    def _calc_distances(p0: np.ndarray, points: np.ndarray) -> np.ndarray:
+        return ((p0 - points[:, :3]) ** 2).sum(axis=1)
+
+    def __call__(self, pts: np.ndarray, k: int) -> np.ndarray:
+        """``pts (N, C)`` -> the ``k`` sampled rows, float32 ``(k, C)``."""
+        farthest = np.zeros((k, pts.shape[1]), dtype=np.float32)
+        farthest[0] = pts[np.random.randint(len(pts))]
+        distances = self._calc_distances(farthest[0, :3], pts)
+        for i in range(1, k):
+            farthest[i] = pts[np.argmax(distances)]
+            distances = np.minimum(
+                distances, self._calc_distances(farthest[i, :3], pts))
+        return farthest
+
+
+def downsample_points(pts: np.ndarray, k: int) -> np.ndarray:
+    """``k`` rows of ``pts``: by FPS when the cloud holds at least ``2k``
+    points, by random choice otherwise (with repeats when ``k`` is below
+    the cloud's size, as the JAX package and the reference draw it)."""
+    if pts.shape[0] >= 2 * k:
+        return FarthestSampler()(pts, k)
+    return pts[np.random.choice(pts.shape[0], k, replace=(k < pts.shape[0]))]
