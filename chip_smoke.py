@@ -10,10 +10,12 @@ no result line:
    and CUDA versions; exits non-zero when no GPU is visible.
 2. Build: compiles ``threepu_torch/csrc/*.cu`` for sm_90a with nvcc.
 3. Kernels against their plain PyTorch versions, at the shapes of the
-   16x pipeline: select (k=33 over (320, 312, 312), injected ties and
-   1e30 penalty columns) and FPS (the level-4 merge, 8 x 24960 -> 4992,
-   and the final re-stitch, 8 x 29952 -> 10000, with a mask and
-   non-finite points) must match exactly;
+   16x pipeline: select (k=33 over (B, 312, 312) for B = 80, 160 and 320,
+   injected ties and 1e30 penalty columns) and FPS (the level-2, 3 and 4
+   merges, 8 x 6240 / 12480 / 24960 -> 1248 / 2496 / 4992, and the final
+   re-stitch, 8 x 29952 -> 10000, with a mask and non-finite points; the
+   cluster plan taken and microseconds per pick printed for each, then
+   the pick chain's floor at each cluster size) must match exactly;
    interlevel (P=8, group 40, M=6240 and group 20, M=3120, C=264, k=5)
    must pick the same indices and agree to 1e-5, and so must, at the
    train step's shape (B = P = 16, M = 312), its weights output and the
@@ -126,8 +128,13 @@ NET = dict(max_up_ratio=16, step_ratio=2, knn=32, growth_rate=12, dense_n=3,
 SEED = 0
 # phase 3 shapes: (B, N) of the conv-site distance matrices (k=33); FPS
 # (clouds, points, picks); interlevel (P, sub-patches per top patch, M)
-SELECT_CASE = (320, 312)
-FPS_CASES = ((8, 24960, 4992), (8, 29952, 10000))
+SELECT_BATCHES, SELECT_N = (80, 160, 320), 312
+#: the merge re-stitches of levels 2, 3 and 4, then a group of the final
+#: G = 8 re-stitch
+FPS_CASES = ((8, 6240, 1248), (8, 12480, 2496), (8, 24960, 4992),
+             (8, 29952, 10000))
+#: picks of the pick-chain floor (:func:`fps_chain_floor`)
+FPS_FLOOR_PICKS = 4992
 INTERLEVEL_CASES = ((8, 20, 3120), (8, 40, 6240))
 #: the train step's interlevel shape: B = P = 16, one sub-patch, M = 312
 INTERLEVEL_TRAIN_CASE = (16, 1, 312)
@@ -392,6 +399,26 @@ def check_edgeconv(dev, g, card: str) -> dict:
     return rep
 
 
+def fps_chain_floor(dev, card: str) -> None:
+    """The FPS kernel on 8 clouds of N = C points, one point a block, at
+    each cluster size C: nearly all of a pick is then the argmaxes, the
+    distributed-shared-memory stores and the wait for the peers, so the
+    microseconds per pick are the pick chain's floor at that C."""
+    import torch
+    import threepu_torch.ops.fps as fps_mod
+    picks = FPS_FLOOR_PICKS
+    floors = {}
+    for c in (1, 2, 4, 8):
+        pts = torch.randn((8, c, 3), device=dev)
+        valid = torch.ones((8, c), dtype=torch.bool, device=dev)
+        out = torch.empty((8, picks), dtype=torch.int32, device=dev)
+        plan = fps_mod.FpsPlan(c, "registers-8", 1)
+        ms = cuda_ms(lambda: fps_mod._launch(pts, valid, out, plan), 3)
+        floors[c] = round(ms * 1e3 / picks, 4)
+    print(f"fps pick chain floor, 8 clouds of N = C points, {picks} picks: "
+          f"us/pick by cluster size C {floors} [{card}]", flush=True)
+
+
 def check_kernels(dev, card: str, fx) -> dict:
     """Phase 3: each kernel against its plain version; returns, per
     kernel, the error, times and bound at its headline shape."""
@@ -403,28 +430,34 @@ def check_kernels(dev, card: str, fx) -> dict:
     g = torch.Generator(device=dev).manual_seed(SEED)
     report = {}
 
-    d = select_inputs(dev, g, *SELECT_CASE)
-    v, i = sel_mod.select(d, 33)
-    pv, pi = sel_mod.select_plain(d, 33)
-    torch.cuda.synchronize()
-    if not (torch.equal(v, pv) and torch.equal(i, pi)):
-        raise AssertionError("select: kernel and plain version differ")
-    ms = cuda_ms(lambda: sel_mod.select(d, 33), 20)
-    plain_ms = cuda_ms(lambda: sel_mod.select_plain(d, 33), 5)
-    # torch.topk computes the same k smallest, but with no promise on the
-    # order among ties: a yardstick only
-    library_ms = cuda_ms(lambda: torch.topk(d, 33, dim=-1, largest=False), 5)
-    rows, n = d.numel() // d.shape[-1], d.shape[-1]
-    report["select"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms,
-                            **bound(rows * n, rows * n * 4 + rows * 33 * 8))
-    print(f"select {tuple(d.shape)} k=33: exact; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, bound "
-          f"{report['select']['bound_ms']:.4f} ms "
-          f"({report['select']['bound_by']}) [{card}]", flush=True)
+    for b in SELECT_BATCHES:                 # the headline shape last
+        d = select_inputs(dev, g, b, SELECT_N)
+        v, i = sel_mod.select(d, 33)
+        pv, pi = sel_mod.select_plain(d, 33)
+        torch.cuda.synchronize()
+        if not (torch.equal(v, pv) and torch.equal(i, pi)):
+            raise AssertionError(f"select {tuple(d.shape)}: kernel and plain "
+                                 "version differ")
+        ms = cuda_ms(lambda: sel_mod.select(d, 33), 20)
+        plain_ms = cuda_ms(lambda: sel_mod.select_plain(d, 33), 5)
+        # torch.topk computes the same k smallest, but with no promise on
+        # the order among ties: a yardstick only
+        library_ms = cuda_ms(lambda: torch.topk(d, 33, dim=-1,
+                                                largest=False), 5)
+        rows, n = d.numel() // d.shape[-1], d.shape[-1]
+        report["select"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms,
+                                **bound(rows * n,
+                                        rows * n * 4 + rows * 33 * 8))
+        print(f"select {tuple(d.shape)} k=33: exact; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.topk {library_ms:.4f} ms, "
+              f"bound {report['select']['bound_ms']:.4f} ms "
+              f"({report['select']['bound_by']}) [{card}]", flush=True)
 
-    for b, n, m in FPS_CASES:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, n, m in FPS_CASES:                # the headline shape last
         pts, valid = fps_inputs(dev, g, b, n)
+        plan = fps_mod.fps_plan(b, n, m, sms)
         got = fps_mod.fps(pts, m, valid)
         want = fps_mod.fps_plain(pts, m, valid)
         torch.cuda.synchronize()
@@ -439,9 +472,13 @@ def check_kernels(dev, card: str, fx) -> dict:
                              library_ms=None,
                              **bound(10.0 * b * m * n,
                                      b * n * 13 + b * m * 4))
-        print(f"fps ({b}, {n}) -> {m}: exact; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {report['fps']['bound_ms']:.4f} ms "
+        print(f"fps ({b}, {n}) -> {m}: exact; plan {plan.cluster} blocks a "
+              f"cloud, {plan.slice} points a block, kept in {plan.storage}; "
+              f"kernel {ms:.4f} ms, "
+              f"{ms * 1e3 / m:.3f} us/pick, plain {plain_ms:.4f} ms, bound "
+              f"{report['fps']['bound_ms']:.4f} ms "
               f"({report['fps']['bound_by']}) [{card}]", flush=True)
+    fps_chain_floor(dev, card)
 
     for p, group, m in INTERLEVEL_CASES:
         args = interlevel_inputs(dev, g, p, group, m)

@@ -306,6 +306,31 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path, broken):
         [] if broken else [_build.library_path().name])
 
 
+def test_build_makes_a_variant_of_some_sources(monkeypatch, tmp_path):
+    """``stems`` and ``defines`` compile only those sources, each with the
+    defines, into a library of its own beside the full one."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu"):
+        (csrc / name).write_text("")
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(shutil, "which", lambda name: str(nvcc))
+    variant = _build.build(stems=["a"], defines=["X_SPLIT"])
+    assert variant == _build.library_path(["a"], ["X_SPLIT"])
+    assert variant not in (_build.library_path(), _build.library_path(["a"]))
+    calls = (nvcc.parent / "calls").read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert len(compiles) == 1
+    assert "a.cu" in compiles[0] and "-DX_SPLIT" in compiles[0]
+    assert "-shared" in calls[-1] and "b.o" not in calls[-1]
+    assert not _build.library_path().exists()
+
+
 def test_library_path_follows_the_sources():
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR

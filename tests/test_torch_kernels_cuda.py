@@ -34,13 +34,30 @@ def gen(dev):
     return torch.Generator(device=dev).manual_seed(0)
 
 
-@pytest.mark.parametrize("b,m,n,k", [(4, 37, 312, 33), (3, 8, 200, 5),
-                                     (2, 9, 2000, 64), (1, 1, 1, 1)],
-                         ids=["conv", "ragged", "unstaged-long-rows", "one"])
-def test_select_kernel_matches_plain(dev, gen, b, m, n, k):
-    """Bit for bit: values and indices, ties, 1e30 penalty columns and
-    rows with fewer than k unpenalized columns."""
+#: (k, N) for k in {1, 5, 33, 64} and N in {1, 40, 312, 2000}, k <= N
+_SELECT_GRID = [(k, n) for n in (1, 40, 312, 2000) for k in (1, 5, 33, 64)
+                if k <= n]
+
+
+@pytest.mark.parametrize(
+    "b,m,n,k,signed",
+    [(4, 37, 312, 33, False), (3, 8, 200, 5, False), (2, 9, 2000, 64, False),
+     (1, 1, 1, 1, False), (2, 5, 100, 64, False), (2, 3, 64, 64, False),
+     (2, 3, 700, 33, False), (4, 37, 312, 33, True), (2, 9, 2000, 64, True)]
+    + [(2, 5, n, k, False) for k, n in _SELECT_GRID],
+    ids=["conv", "ragged", "multi-tile", "one", "r4", "r2-full", "r16",
+         "conv-signed", "multi-tile-signed"]
+        + [f"k{k}-n{n}" for k, n in _SELECT_GRID])
+def test_select_kernel_matches_plain(dev, gen, b, m, n, k, signed):
+    """Bit for bit: values and indices; integer-valued rows dense with
+    ties, 1e30 penalty columns, rows with fewer than k unpenalized
+    columns; every run length the kernel is built for (N = 40, 100, 200,
+    312, 700) and rows longer than one tile (N = 2000).  ``signed`` rows
+    hold negative values and -0.0 beside +0.0, which compare equal."""
     d = torch.randint(0, 9, (b, m, n), generator=gen, device=dev).float()
+    if signed:
+        d = d * (2.0 * torch.randint(0, 2, d.shape, generator=gen,
+                                     device=dev) - 1.0)
     d[..., torch.randperm(n, generator=gen, device=dev)[:n // 5]] = 1e30
     d[0, 0, : max(n - 3, 0)] = 1e30
     before = tsel.KERNEL.launches
@@ -48,6 +65,8 @@ def test_select_kernel_matches_plain(dev, gen, b, m, n, k):
     pv, pi = tsel.select_plain(d, k)
     assert tsel.KERNEL.launches == before + 1
     assert torch.equal(v, pv) and torch.equal(i, pi)
+    # verbatim values: the signs of zeros as well
+    assert torch.equal(torch.signbit(v), torch.signbit(pv))
 
 
 def test_select_kernel_rejects_what_it_does_not_take(dev):
@@ -58,15 +77,33 @@ def test_select_kernel_rejects_what_it_does_not_take(dev):
         tsel.select(d.double(), 5)
 
 
-@pytest.mark.parametrize("b,n,m", [(2, 700, 150), (3, 5000, 64),
-                                   (1, 3000, 3000)],
-                         ids=["small", "wide", "all-points"])
-def test_fps_kernel_matches_plain(dev, gen, b, n, m):
-    pts = torch.randn((b, n, 3), generator=gen, device=dev)
+@pytest.mark.parametrize("b,n,m,cluster,repeated", [
+    (2, 700, 150, 1, False), (3, 5000, 64, 4, False),
+    (1, 3000, 3000, 2, False), (8, 2496, 40, 2, False),
+    (8, 12480, 300, 8, False), (8, 24960, 200, 8, False),
+    (8, 40000, 200, 8, False), (1, 250000, 32, 8, False),
+    (1, 100000, 64, 8, False), (2, 8192, 500, 4, True),
+    (1, 40000, 300, 8, True)],
+    ids=["small", "wide", "all-points", "cluster-2", "cluster-8",
+         "cluster-8-16-a-thread", "large-cloud", "device-memory",
+         "shared-memory", "repeated-4", "repeated-8"])
+def test_fps_kernel_matches_plain(dev, gen, b, n, m, cluster, repeated):
+    """Bit for bit at every cluster size the plan chooses, with the slice
+    in registers (8 and 16 points a thread), in shared memory (N =
+    100,000) and in device memory (N = 250,000), m = N, the seed off
+    index 0, NaN and inf points.
+    ``repeated``: 7 distinct points repeated over the cloud, so every pick
+    ties across the blocks of a cluster and the lowest index must win."""
+    if repeated:
+        pts = torch.randn((b, 7, 3), generator=gen, device=dev).repeat(
+            1, -(-n // 7), 1)[:, :n].contiguous()
+    else:
+        pts = torch.randn((b, n, 3), generator=gen, device=dev)
     valid = torch.rand((b, n), generator=gen, device=dev) > 0.1
     valid[0, :17] = False                            # seed moves off 0
     pts[:, 5] = float("nan")
     pts[-1, 9] = float("inf")
+    assert tfps.fps_plan(b, n, m).cluster == cluster
     before = tfps.KERNEL.launches
     got = tfps.fps(pts, m, valid)
     assert tfps.KERNEL.launches == before + 1
@@ -74,11 +111,38 @@ def test_fps_kernel_matches_plain(dev, gen, b, n, m):
     assert torch.equal(tfps.fps(pts, m), tfps.fps_plain(pts, m))
 
 
-def test_fps_kernel_no_valid_point(dev, gen):
-    pts = torch.randn((2, 50, 3), generator=gen, device=dev)
-    valid = torch.zeros((2, 50), dtype=torch.bool, device=dev)
+@pytest.mark.parametrize("n", [50, 4096], ids=["one-block", "cluster-4"])
+def test_fps_kernel_no_valid_point(dev, gen, n):
+    """Cloud 0 has no valid point (index 0 forever), cloud 1 two."""
+    pts = torch.randn((2, n, 3), generator=gen, device=dev)
+    valid = torch.zeros((2, n), dtype=torch.bool, device=dev)
     valid[1, [4, 30]] = True
-    assert torch.equal(tfps.fps(pts, 6, valid), tfps.fps_plain(pts, 6, valid))
+    before = tfps.KERNEL.launches
+    got = tfps.fps(pts, 6, valid)
+    assert tfps.KERNEL.launches == before + 1
+    assert torch.equal(got, tfps.fps_plain(pts, 6, valid))
+
+
+def test_fps_kernel_at_every_cluster_size(dev, gen):
+    """One (8, 4096) call laid out by hand at cluster sizes 1 to 8 (down
+    to 512 points a block), in each storage that holds the slice: all
+    equal the plain version; a layout the kernel does not take (a
+    cluster of 16, a slice larger than the registers hold) raises."""
+    pts = torch.randn((8, 4096, 3), generator=gen, device=dev)
+    valid = torch.rand((8, 4096), generator=gen, device=dev) > 0.2
+    want = tfps.fps_plain(pts, 300, valid)
+    for cluster in (1, 2, 4, 8):
+        for storage in tfps.STORAGE:
+            plan = tfps.FpsPlan(cluster, storage, -(-4096 // cluster))
+            if storage == "registers-8" and plan.slice > 2048:
+                continue
+            out = torch.empty_like(want)
+            tfps._launch(pts, valid, out, plan)
+            assert torch.equal(out, want), (cluster, storage)
+    for cluster, storage in ((16, "shared"), (1, "registers-8")):
+        with pytest.raises(RuntimeError, match="threepu_fps launch failed"):
+            tfps._launch(pts, valid, torch.empty_like(want),
+                         tfps.FpsPlan(cluster, storage, 128))
 
 
 def test_fps_hierarchical_on_gpu_matches_cpu(dev, gen):

@@ -201,6 +201,57 @@ def test_dispatch_fps_goes_hierarchical_above_the_cap(rng, monkeypatch):
     assert not np.array_equal(got, tfps.fps(pts, 10).numpy())
 
 
+@pytest.mark.parametrize("b,n,m,sms,cluster,storage", [
+    (1, 5000, 48, 132, 4, "registers-8"),
+    (8, 624, 10, 132, 1, "registers-8"),
+    (8, 1248, 20, 132, 1, "registers-8"),
+    (8, 2496, 40, 132, 2, "registers-8"),
+    (8, 6240, 1248, 132, 4, "registers-8"),
+    (8, 12480, 2496, 132, 8, "registers-8"),
+    (8, 24960, 4992, 132, 8, "registers-16"),
+    (8, 29952, 10000, 132, 8, "registers-16"),
+    (8, 40000, 10000, 132, 8, "shared"),
+    (17, 24960, 4992, 132, 4, "shared"),
+    (2, 480000, 5000, 132, 8, "device"),
+    (1, 250000, 32, 132, 8, "device"),
+    (1, 100000, 32, 132, 8, "shared"),
+    (1, 5000, 48, 1, 1, "shared"),
+    (48, 6240, 1248, 132, 2, "registers-16"),
+], ids=["seed", "sub-seeds-2", "sub-seeds-3", "sub-seeds-4", "merge-2",
+        "merge-3", "merge-4", "final-restitch", "large-cloud",
+        "more-clouds-than-clusters-of-8", "hierarchical-group",
+        "above-shared-memory", "shared-memory", "one-sm", "many-clouds"])
+def test_fps_plan_at_main_path_shapes(b, n, m, sms, cluster, storage):
+    """The FPS kernel's launch plan at each FPS shape of a 16x shape (the
+    seed picks, each level's sub-patch seeds and merge re-stitch, a group
+    of the G = 8 final re-stitch), at a cloud above 32,768 points, with
+    more clouds than clusters of 8 or of 4 fit on 132 SMs, at a group of
+    the hierarchical FPS's largest size, above a block's shared memory,
+    and on a card of one SM."""
+    plan = tfps.fps_plan(b, n, m, sms)
+    assert (plan.cluster, plan.storage) == (cluster, storage)
+    assert plan.slice == -(-n // cluster)
+    assert plan.cluster <= tfps.MAX_CLUSTER and b * plan.cluster <= max(sms, b)
+    regs = {"registers-8": 8, "registers-16": 16}.get(plan.storage)
+    if regs is None:
+        assert plan.slice > 16 * tfps.BLOCK_THREADS
+        assert (plan.storage == "shared") == (
+            plan.slice * 16 <= tfps.MAX_STAGED_BYTES)
+    else:
+        assert plan.slice <= regs * tfps.BLOCK_THREADS
+        assert regs == 8 or plan.slice > 8 * tfps.BLOCK_THREADS
+
+
+@pytest.mark.parametrize("b,n,m,sms", [
+    (0, 100, 5, 132), (1, 0, 5, 132), (1, 100, 0, 132), (1, 2**31, 5, 132),
+    (1, 100, 5, 0), (2, -5, 5, 132)],
+    ids=["no-cloud", "no-point", "no-pick", "n-over-int32", "no-sm",
+         "negative-points"])
+def test_fps_plan_rejects_bad_calls(b, n, m, sms):
+    with pytest.raises(ValueError, match="fps: "):
+        tfps.fps_plan(b, n, m, sms)
+
+
 # ---------------------------------------------------------- interlevel
 def _interlevel_inputs(rng, p, g, n, m, c):
     """Previous sets with duplicate and phantom columns; queries well

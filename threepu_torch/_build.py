@@ -16,6 +16,9 @@ editing any source builds a new library.  The library is loaded with
 stream, and returns the ``cudaError_t`` of its launch, which
 :class:`Kernel` turns into an exception.  Nothing here runs at import
 time: this module imports on machines without a GPU or ``nvcc``.
+:func:`build` also makes variants for diagnostics (some sources, with
+extra ``-D`` defines) under names of their own; :func:`library` loads
+only the full one.
 """
 
 from __future__ import annotations
@@ -54,26 +57,38 @@ def nvcc_path() -> str:
     return path
 
 
-def _sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def _sources(stems: Optional[Sequence[str]] = None) -> list:
+    """The ``.cu`` files, all or those named by ``stems``."""
+    return [src for src in sorted(CSRC_DIR.glob("*.cu"))
+            if stems is None or src.stem in stems]
 
 
-def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC_DIR.glob("*.cu*")):
+def _flags(defines: Sequence[str]) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(stems: Optional[Sequence[str]] = None,
+                 defines: Sequence[str] = ()) -> Path:
+    """Where the library of the current sources lives (built or not): of
+    every ``.cu`` file, or of those named by ``stems``, with ``defines``."""
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+    for path in sorted(CSRC_DIR.glob("*.cuh")) + _sources(stems):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / f"libthreepu_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(ptxas_verbose: bool = False) -> Path:
+def build(ptxas_verbose: bool = False,
+          stems: Optional[Sequence[str]] = None,
+          defines: Sequence[str] = ()) -> Path:
     """Compile the library unless the current sources are built already.
 
     Returns its path.  With ``ptxas_verbose`` the compiler's report of
-    registers, shared memory and spills per kernel is printed.
+    registers, shared memory and spills per kernel is printed.  ``stems``
+    (source names without ``.cu``) and ``defines`` (each passed as
+    ``-D``) build a variant of the library under a name of its own.
     """
-    out = library_path()
+    out = library_path(stems, defines)
     if out.exists():
         return out
     nvcc = nvcc_path()
@@ -82,8 +97,8 @@ def build(ptxas_verbose: bool = False) -> Path:
     verbose = ["-Xptxas=-v"] if ptxas_verbose else []
     t0 = time.perf_counter()
     jobs = []
-    for src in _sources():
-        cmd = [nvcc, *NVCC_FLAGS, *verbose, "-c", "-o",
+    for src in _sources(stems):
+        cmd = [nvcc, *_flags(defines), *verbose, "-c", "-o",
                str(obj_dir / f"{src.stem}.o"), str(src)]
         jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE,
@@ -94,7 +109,7 @@ def build(ptxas_verbose: bool = False) -> Path:
         results.append((cmd, proc.returncode, stdout, stderr))
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     link = [nvcc, "-shared", "-o", str(tmp),
-            *(str(obj_dir / f"{src.stem}.o") for src in _sources())]
+            *(str(obj_dir / f"{src.stem}.o") for src in _sources(stems))]
     if all(rc == 0 for _, rc, _, _ in results):
         res = subprocess.run(link, capture_output=True, text=True)
         results.append((link, res.returncode, res.stdout, res.stderr))

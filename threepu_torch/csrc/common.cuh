@@ -14,35 +14,20 @@ namespace threepu {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// (value, index) pair ordered by value, then by index.
-__device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
-  return av < bv || (av == bv && ai < bi);
+// The bits of a float as an unsigned integer in the float's order: -0
+// reads as +0, which compares equal to it.  Not for NaN.
+__device__ __forceinline__ unsigned ordered_bits(float v) {
+  unsigned u = __float_as_uint(v);
+  if ((u << 1) == 0u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Lexicographic min of (v, i) over the warp; every lane gets the result.
-__device__ __forceinline__ void warp_lex_min(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(kFullMask, v, off);
-    int oi = __shfl_xor_sync(kFullMask, i, off);
-    if (lex_less(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-// Max of v over the warp, ties to the lowest index i; every lane gets it.
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float ov = __shfl_xor_sync(kFullMask, v, off);
-    int oi = __shfl_xor_sync(kFullMask, i, off);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+// The largest key over the warp, ties to the lowest index i: two
+// redux.sync, and every lane gets both.
+__device__ __forceinline__ void warp_argmax(unsigned& key, unsigned& i) {
+  const unsigned best = __reduce_max_sync(kFullMask, key);
+  i = __reduce_min_sync(kFullMask, key == best ? i : ~0u);
+  key = best;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

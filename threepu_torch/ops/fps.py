@@ -10,7 +10,9 @@ is left.
   ``sanitize_points``), one Python step per pick.
 - :func:`fps`: the CUDA kernel ``csrc/fps.cu`` on a CUDA tensor,
   :func:`fps_plain` on a CPU tensor.  On the GPU every FPS call of the
-  pipeline goes through it, the 48 seed picks included.
+  pipeline goes through it, the 48 seed picks included.  The kernel
+  splits each cloud over a thread-block cluster; :func:`fps_plan` sizes
+  the cluster.
 - :func:`fps_hierarchical`: Morton-stratified grouped FPS, for the final
   re-stitch and for clouds above :data:`PALLAS_MAX_N` points.
 """
@@ -18,7 +20,7 @@ is left.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,12 +31,70 @@ _INIT_DIST = 1e10
 #: JAX package does on the TPU, so groupings match it
 PALLAS_MAX_N = 480_000
 _INT32_MAX = 2**31 - 1
+#: the largest cluster the kernel takes: 8, the portable maximum on
+#: Hopper (a pick on a cluster of 16 cost about a third more than on one of
+#: 8 wherever both were timed: PERF.md)
+MAX_CLUSTER = 8
+#: a block's slice stays in its 256 threads' registers, 8 or 16 points a
+#: thread, up to 16 * 256 points; in its shared memory as float4 (x, y, z,
+#: carry) up to MAX_STAGED_BYTES (225 KiB of the 227 KiB a Hopper block may
+#: opt into, the rest left for the kernel's static shared memory); and in
+#: device memory above that
+BLOCK_THREADS = 256
+MAX_STAGED_BYTES = 225 * 1024
+#: the kernel's codes for where a block keeps its slice
+STORAGE = ("device", "shared", "registers-8", "registers-16")
+#: SMs of an H100 SXM, the plan's default; the wrapper reads the card's
+H100_SMS = 132
 
 KERNEL = Kernel("threepu_fps",
-                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int],
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5,
                 source="threepu_torch/csrc/fps.cu",
                 replaces="threepu/ops/fps_pallas.py:33")
+
+
+class FpsPlan(NamedTuple):
+    """How the kernel lays out one call: ``cluster`` blocks per cloud,
+    each owning ``slice`` consecutive points, kept in ``storage``: one of
+    :data:`STORAGE`."""
+    cluster: int
+    storage: str
+    slice: int
+
+
+def fps_plan(b: int, n: int, m: int, sms: int = H100_SMS) -> FpsPlan:
+    """The kernel's layout for ``b`` clouds of ``n`` points and ``m``
+    picks on a card of ``sms`` SMs.  The cluster is a power of two up to
+    :data:`MAX_CLUSTER` whose ``b`` clusters fit on the SMs at one block
+    each: the smallest whose blocks hold their slice in registers at 8
+    points a thread, else at 16; where none does (clouds above 32,768
+    points), the largest."""
+    if b < 1 or not 1 <= n <= _INT32_MAX or m < 1 or sms < 1:
+        raise ValueError(f"fps: no launch plan for B={b}, N={n}, m={m} on "
+                         f"{sms} SMs: need B >= 1, 1 <= N < 2**31, m >= 1 "
+                         "and an SM")
+    top = MAX_CLUSTER
+    while top > 1 and b * top > sms:
+        top //= 2
+    for regs in (8, 16):
+        c = 1
+        while c <= top:
+            if -(-n // c) <= regs * BLOCK_THREADS:
+                return _layout(c, n)
+            c *= 2
+    return _layout(top, n)
+
+
+def _layout(c: int, n: int) -> FpsPlan:
+    """Clusters of ``c`` blocks over clouds of ``n`` points, each block's
+    slice in registers where it fits, else in shared memory, else in
+    device memory."""
+    per = -(-n // c)
+    for regs in (8, 16):
+        if per <= regs * BLOCK_THREADS:
+            return FpsPlan(c, f"registers-{regs}", per)
+    return FpsPlan(c, "shared" if per * 16 <= MAX_STAGED_BYTES else "device",
+                   per)
 
 
 def sanitize_points(points: torch.Tensor,
@@ -87,12 +147,24 @@ def fps(points: torch.Tensor, m: int,
     if tuple(valid_mask.shape) != (b, n):
         raise ValueError(f"fps: valid_mask {tuple(valid_mask.shape)} does "
                          f"not match points {tuple(points.shape)}")
-    temp = torch.empty((b, n), dtype=torch.float32, device=points.device)
     out = torch.empty((b, m), dtype=torch.int32, device=points.device)
     if b:
-        KERNEL(points.data_ptr(), valid_mask.view(torch.uint8).data_ptr(),
-               temp.data_ptr(), out.data_ptr(), b, n, m)
+        sms = torch.cuda.get_device_properties(
+            points.device).multi_processor_count
+        _launch(points, valid_mask, out, fps_plan(b, n, m, sms))
     return out
+
+
+def _launch(points: torch.Tensor, valid_mask: torch.Tensor,
+            out: torch.Tensor, plan: FpsPlan) -> None:
+    """The kernel on checked inputs, laid out by ``plan``; writes ``out
+    (B, m)``."""
+    b, n, _ = points.shape
+    scratch = torch.empty((b * n if plan.storage == "device" else 0, 4),
+                          dtype=torch.float32, device=points.device)
+    KERNEL(points.data_ptr(), valid_mask.view(torch.uint8).data_ptr(),
+           scratch.data_ptr(), out.data_ptr(), b, n, out.shape[1],
+           plan.cluster, STORAGE.index(plan.storage))
 
 
 def _dispatch_fps(points: torch.Tensor, m: int,
