@@ -16,15 +16,21 @@ no result line:
    re-stitch, 8 x 29952 -> 10000, with a mask and non-finite points; the
    cluster plan taken and microseconds per pick printed for each, then
    the pick chain's floor at each cluster size) must match exactly;
-   interlevel (P=8, group 40, M=6240 and group 20, M=3120, C=264, k=5)
-   must pick the same indices and agree to 1e-5, and so must, at the
-   train step's shape (B = P = 16, M = 312), its weights output and the
-   ``prev_feat`` gradient of its backward; the one-way nearest
+   interlevel (P=8, C=264, k=5: group 10, M=312; group 20, M=3120; group
+   40, M=6240, the calls of levels 2, 3 and 4) must pick the same indices
+   and agree to 1e-5, and so must, at the train step's shape (B = P = 16,
+   M = 312), its weights output and the ``prev_feat`` gradient of its
+   backward (the cluster plan and the selection's issue-slot floor are
+   printed for each);
+   the one-way nearest
    neighbour of the Chamfer loss ((16, 624) x (16, 624), the train
    loss, and the JAX package's 80k output against the 80k ground truth)
    must match exactly, values and indices; the fused edge-conv chain
-   (B = 320 and B = 8 sub-patches of N = 312, k = 32, G = 12, n = 3, and
-   two small odd shapes with n = 1 and n = 2) must agree to 1e-5.  Each
+   (B = 8, 80, 160 and 320 sub-patches of N = 312, k = 32, G = 12, n = 3,
+   the calls of levels 1 to 4, in the main path's layout: the int32
+   ``[..., 1:]`` view of a k+1 selection, the chain blocks as views of
+   weights; and two small odd shapes with n = 1 and n = 2)
+   must agree to 1e-5.  Each
    kernel's time is
    printed beside its plain version's, the time of one PyTorch call
    computing the same function where there is one (``torch.topk`` for
@@ -135,7 +141,11 @@ FPS_CASES = ((8, 6240, 1248), (8, 12480, 2496), (8, 24960, 4992),
              (8, 29952, 10000))
 #: picks of the pick-chain floor (:func:`fps_chain_floor`)
 FPS_FLOOR_PICKS = 4992
-INTERLEVEL_CASES = ((8, 20, 3120), (8, 40, 6240))
+#: levels 2, 3 and 4
+INTERLEVEL_CASES = ((8, 10, 312), (8, 20, 3120), (8, 40, 6240))
+#: interlevel launches of one 16x shape at each of levels 2, 3 and 4: one
+#: a chunk, 6 chunks
+INTERLEVEL_LAUNCHES = 6
 #: the train step's interlevel shape: B = P = 16, one sub-patch, M = 312
 INTERLEVEL_TRAIN_CASE = (16, 1, 312)
 #: interlevel values, weights and gradient against the plain version (max
@@ -144,9 +154,10 @@ INTERLEVEL_BAND = 1e-5
 #: the train loss's nearest-neighbour shape (B, N) x (B, N)
 CHAMFER_TRAIN_CASE = (16, 624)
 #: the edge-conv chain (B, N, k, G, n): two small odd shapes, then the
-#: level-1 and the level-4 calls of a chunk; max abs band against the plain
+#: calls of a chunk's levels 1, 2, 3 and 4; max abs band against the plain
 #: version, whose cuBLAS products sum in another order
 EDGECONV_CASES = ((3, 40, 5, 4, 1), (3, 40, 5, 4, 2), (8, 312, 32, 12, 3),
+                  (80, 312, 32, 12, 3), (160, 312, 32, 12, 3),
                   (320, 312, 32, 12, 3))
 EDGECONV_BAND = 1e-5
 #: edge-conv launches of one 16x shape: 4 levels x 4 convs x 6 chunks
@@ -267,6 +278,16 @@ def interlevel_bound(args, with_w: bool = False) -> dict:
     return bound(ops, nbytes)
 
 
+def interlevel_issue_floor_ms(args) -> float:
+    """The interlevel selection's issue-slot floor on ``args``: 10 issue
+    slots a candidate (the distance's 8 separately rounded operations, the
+    penalty's select and the compare) at one a lane a clock, the rate at
+    which the fp32 peak (:data:`FP32_FLOPS`) counts an FMA as two
+    operations.  The bound prices each of these slots as one operation."""
+    (_, m, _), (bq, nq, _) = args[2].shape, args[1].shape
+    return bq * nq * m * 10.0 / (FP32_FLOPS / 2) * 1e3
+
+
 def check_interlevel_train(dev, g, card: str) -> None:
     """The interlevel kernel at the train step's shape (B = P = 16, one
     sub-patch per previous set, N = M = 312, C = 264, k = 5) with the
@@ -307,7 +328,8 @@ def check_interlevel_train(dev, g, card: str) -> None:
     b = interlevel_bound(args, with_w=True)
     print(f"interlevel train shape with w: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']}) [{card}]", flush=True)
+          f"({b['bound_by']}); 3 launches per train step [{card}]",
+          flush=True)
 
 
 def chamfer_inputs(dev, g, b, n):
@@ -354,14 +376,41 @@ def check_chamfer(a, b, card: str, reps: int) -> dict:
 
 
 def edgeconv_inputs(dev, g, b, n_pts, k, growth, n):
+    """The chain's arguments as ``DenseEdgeConv`` passes them: ``z`` and
+    the ``n`` stages' terms as separate ``(B, N, G)`` products, ``idx`` the
+    int32 ``[..., 1:]`` view of a ``k + 1`` selection, the chain blocks as
+    row blocks of transposed weights."""
     import torch
-    z = torch.randn((b, n_pts, growth), generator=g, device=dev)
-    idx = torch.randint(0, n_pts, (b, n_pts, k), generator=g, device=dev,
-                        dtype=torch.int32)
-    pts = torch.randn((b, n, n_pts, growth), generator=g, device=dev)
-    chain_w = 0.3 * torch.randn((n * (n - 1) // 2, growth, growth),
-                                generator=g, device=dev)
+    z, *pts = torch.randn((n + 1, b, n_pts, growth), generator=g,
+                          device=dev).unbind()
+    idx = torch.randint(0, n_pts, (b, n_pts, k + 1), generator=g, device=dev,
+                        dtype=torch.int32)[..., 1:]
+    w = [0.3 * torch.randn((growth, growth * i + 3), generator=g,
+                           device=dev).t() for i in range(1, n)]
+    chain_w = [w[i - 1][growth * j:growth * (j + 1)] for i in range(1, n)
+               for j in range(i)]
     return z, idx, pts, chain_w, n, growth
+
+
+def edgeconv_host_us(chain, args, reps: int = 50, runs: int = 20) -> float:
+    """Host microseconds a call of ``chain(*args)`` (an edge-conv wrapper,
+    ``ops.edgeconv.edge_conv_chain``), the best of ``runs`` runs of
+    ``reps`` calls queued without a sync (other work on a shared host only
+    adds time): at the level-1 shape the device finishes a call before the
+    host has issued the next, so this is what the wrapper costs the
+    host-bound eval loop."""
+    import torch
+    best = float("inf")
+    with torch.no_grad():
+        chain(*args)
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(reps):
+                chain(*args)
+            best = min(best, (time.perf_counter() - start) / reps * 1e6)
+            torch.cuda.synchronize()
+    return best
 
 
 def check_edgeconv(dev, g, card: str) -> dict:
@@ -387,14 +436,20 @@ def check_edgeconv(dev, g, card: str) -> dict:
         # an add, a relu and a max per channel
         ops = b * n_pts * k * (2.0 * growth * growth * n * (n - 1) / 2
                                + 3.0 * n * growth)
-        nbytes = sum(t.numel() * t.element_size() for t in args[:4]) \
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*args[:2], *args[2], *args[3])) \
             + b * n_pts * n * growth * 4
         rep = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                    **bound(ops, nbytes))
+        # a chunk's 4 levels run 4 edge convs each, one shape 6 chunks
+        per_shape = (EDGECONV_LAUNCHES // 4 if (n_pts, k, growth, n)
+                     == (312, 32, 12, 3) else 0)
+        host_us = edgeconv_host_us(ec_mod.edge_conv_chain, args)
         print(f"edge conv B={b} N={n_pts} k={k} G={growth} n={n}: max abs err "
               f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}) [{card}]",
-              flush=True)
+              f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}); wrapper "
+              f"{host_us:.2f} us of host a call; {per_shape} launches per "
+              f"16x shape with the toggle on [{card}]", flush=True)
     torch.cuda.empty_cache()
     return rep
 
@@ -498,11 +553,16 @@ def check_kernels(dev, card: str, fx) -> dict:
         report["interlevel"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     library_ms=None,
                                     **interlevel_bound(args))
+        plan = il_mod.interlevel_plan(args[0].shape[1])
         print(f"interlevel P={p} group={group} M={m} C=264 k=5: picks exact, "
               f"max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound "
               f"{report['interlevel']['bound_ms']:.4f} ms "
-              f"({report['interlevel']['bound_by']}) [{card}]", flush=True)
+              f"({report['interlevel']['bound_by']}), issue-slot floor "
+              f"{interlevel_issue_floor_ms(args):.4f} ms; "
+              f"clusters of {plan.cluster} x {plan.threads} threads; "
+              f"{INTERLEVEL_LAUNCHES} launches per 16x shape [{card}]",
+              flush=True)
     check_interlevel_train(dev, g, card)
 
     big = [torch.from_numpy(fx[k][None]).to(dev) for k in ("jax_out", "gt")]

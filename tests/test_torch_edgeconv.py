@@ -77,6 +77,40 @@ def test_chain_plain_matches_pallas_interpret(b, num_n, k, n, g):
     assert torch.equal(stacked, got)
 
 
+@pytest.mark.parametrize("n,g,idx_dtype", [(1, 12, torch.int64),
+                                            (2, 4, torch.int32),
+                                            (3, 12, torch.int64),
+                                            (3, 5, torch.int32),
+                                            (4, 8, torch.int64)])
+def test_chain_takes_the_layers_views(n, g, idx_dtype):
+    """Views that the kernel reads through their strides: the ``[..., 1:]``
+    slice of a k + 1 selection and the chain blocks as row blocks of
+    transposed weights, as ``DenseEdgeConv`` passes them, and ``z`` and
+    the stages' terms as slices of one ``(B, N, (n + 1) G)`` product: the
+    same result, bit for bit, as the same values passed as separate
+    contiguous tensors."""
+    rng = np.random.default_rng(n + g)
+    b, num_n, k = 2, 30, 6
+    prod = torch.from_numpy(
+        rng.standard_normal((b, num_n, (n + 1) * g)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, num_n, (b, num_n, k + 1))).to(
+        idx_dtype)[..., 1:]
+    w = [torch.from_numpy((0.3 * rng.standard_normal((g, g * i + 3))).astype(
+        np.float32)).t() for i in range(1, n)]
+    chain_w = [w[i - 1][g * j:g * (j + 1)] for i in range(1, n)
+               for j in range(i)]
+    z, pts = prod[..., :g], list(prod[..., g:].split(g, dim=-1))
+    assert not (idx.is_contiguous() or z.is_contiguous()
+                or any(t.is_contiguous() for t in pts))
+    got = tec.edge_conv_chain(z, idx, pts, chain_w, n, g)
+    want = tec.edge_conv_chain_plain(
+        z.contiguous(), idx.contiguous().long(),
+        [t.contiguous() for t in pts],
+        [t.contiguous() for t in chain_w], n, g)
+    assert got.shape == (b, num_n, n * g)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("n,g,k", [(1, 12, 5), (2, 4, 4), (3, 12, 8)])
 def test_dense_edge_conv_chain_flag_matches_jax(rng, n, g, k):
     """The port's DenseEdgeConv with the chain flag against JAX's

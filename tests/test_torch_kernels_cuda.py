@@ -153,19 +153,71 @@ def test_fps_hierarchical_on_gpu_matches_cpu(dev, gen):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("p,group,n,m,c,k", [(2, 3, 40, 300, 24, 5),
-                                             (3, 1, 312, 312, 264, 5),
-                                             (1, 2, 1024, 5000, 8, 8),
-                                             (2, 2, 7, 6, 5, 1)],
-                         ids=["grouped", "group1", "max-n", "tiny"])
-def test_interlevel_kernel_matches_plain(dev, gen, p, group, n, m, c, k):
-    """Picks exact; values to 1e-5 (sums over C and over the queries run
-    in another order than PyTorch's)."""
+def _interlevel_prev(gen, dev, p, m, kind):
+    """``(prev_xyz, prev_dup)``.  ``random``: copies of earlier points
+    (flagged by duplicate_mask) and two phantom rows.  ``ties``: integer
+    coordinates with many exact copies at indices that fall in different
+    lanes' shares, none flagged, so equal ranks must go to the lowest index
+    across the team.  ``share``: one lane's whole share (every index 3 mod
+    8) flagged, with the ``random`` points.  ``nonfinite``: the ``random``
+    points with the first 8 flagged, two of them at infinite coordinates:
+    a flagged point ranks 1e30 whatever its coordinates, so the picks
+    that reach the flagged points take the lowest indices."""
+    if kind == "ties":
+        prev = torch.randint(-2, 3, (p, m, 3), generator=gen,
+                             device=dev).float()
+        prev[:, 5::13] = prev[:, 0:1]
+        return prev, torch.zeros((p, m), dtype=torch.bool, device=dev)
     prev = torch.randn((p, m, 3), generator=gen, device=dev) * 0.3
     prev[:, 1::7] = prev[:, 0::7][:, :prev[:, 1::7].shape[1]]
     dup = duplicate_mask(prev)
     dup[:, -2:] = True                               # phantom rows
+    if kind == "share":
+        dup[:, 3::til.TEAM] = True
+    if kind == "nonfinite":
+        dup[:, :8] = True
+        prev[:, 0] = float("inf")
+        prev[:, 2, 1] = -float("inf")
+    return prev, dup
+
+
+#: (P, group, N, M, C, k, kind); the level shapes at P = 1
+_INTERLEVEL_CASES = {
+    "grouped": (2, 3, 40, 300, 24, 5, "random"),
+    "group1": (3, 1, 312, 312, 264, 5, "random"),
+    "max-n": (1, 2, 1024, 5000, 8, 8, "random"),
+    "tiny": (2, 2, 7, 6, 5, 1, "random"),
+    "ties": (2, 3, 40, 301, 24, 5, "ties"),
+    "ties-k8": (2, 2, 33, 200, 16, 8, "ties"),
+    "share-penalised": (2, 3, 40, 300, 24, 5, "share"),
+    "m-not-multiple-of-team": (2, 2, 50, 301, 12, 5, "random"),
+    "m-below-team-x-k": (2, 2, 50, 20, 12, 5, "random"),
+    "m-below-team-x-k8": (2, 2, 17, 9, 12, 8, "ties"),
+    "k1": (2, 3, 40, 300, 24, 1, "random"),
+    "k8": (2, 3, 40, 300, 24, 8, "random"),
+    "n1": (3, 2, 1, 40, 24, 5, "random"),
+    "n9": (2, 2, 9, 40, 24, 5, "random"),
+    "flagged-nonfinite": (2, 2, 30, 13, 24, 8, "nonfinite"),
+    "level2": (1, 10, 312, 312, 264, 5, "random"),
+    "level3": (1, 20, 312, 3120, 264, 5, "random"),
+    "level4": (1, 40, 312, 6240, 264, 5, "random")}
+
+
+@pytest.mark.parametrize("p,group,n,m,c,k,kind",
+                         list(_INTERLEVEL_CASES.values()),
+                         ids=list(_INTERLEVEL_CASES))
+def test_interlevel_kernel_matches_plain(dev, gen, p, group, n, m, c, k,
+                                         kind):
+    """Picks exact; values to 1e-5 (sums over C and over the queries run
+    in another order than PyTorch's).  Exact rank ties across the lanes of
+    a query's team, a share all penalised, M not a multiple of the team,
+    fewer candidates than team x k (lanes with short or empty lists), k =
+    1 and 8, N = 1, 9 (a cluster of 5) and 1024, flagged points at
+    infinite coordinates among the picks, the level shapes."""
+    prev, dup = _interlevel_prev(gen, dev, p, m, kind)
     q = torch.randn((p * group, n, 3), generator=gen, device=dev) * 0.3
+    if kind == "ties":
+        q = torch.randint(-2, 3, q.shape, generator=gen, device=dev).float()
     xq = torch.randn((p * group, n, c), generator=gen, device=dev)
     feat = torch.randn((p, m, c), generator=gen, device=dev)
     before = til.KERNEL.launches
@@ -174,6 +226,24 @@ def test_interlevel_kernel_matches_plain(dev, gen, p, group, n, m, c, k):
     pout, pidx = til.interlevel_plain(q, xq, prev, feat, dup, k)
     assert torch.equal(idx, pidx)
     torch.testing.assert_close(out, pout, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cluster,n", [(1, 1), (2, 2), (4, 4), (8, 100)],
+                         ids=["1", "2", "4", "8"])
+def test_interlevel_kernel_at_every_cluster_size(dev, gen, cluster, n):
+    """Calls that :func:`interlevel_plan` lays out on clusters of 1 to 8
+    blocks, with the weights output: the same picks and values as the
+    plain version at each."""
+    prev, dup = _interlevel_prev(gen, dev, 2, 300, "random")
+    q = torch.randn((6, n, 3), generator=gen, device=dev) * 0.3
+    xq = torch.randn((6, n, 24), generator=gen, device=dev)
+    feat = torch.randn((2, 300, 24), generator=gen, device=dev)
+    assert til.interlevel_plan(n).cluster == cluster
+    out, idx, w = til._launch(q, xq, prev, feat, dup, 5)
+    pout, pidx, pw = til._plain(q, xq, prev, feat, dup, 5)
+    assert torch.equal(idx, pidx)
+    torch.testing.assert_close(out, pout, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(w, pw, atol=1e-5, rtol=1e-5)
 
 
 def test_interlevel_kernel_rejects_what_it_does_not_take(dev):
@@ -190,8 +260,10 @@ def test_interlevel_kernel_rejects_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("p,group,n,m,c,k", [(2, 3, 40, 300, 24, 5),
-                                             (16, 1, 312, 312, 264, 5)],
-                         ids=["grouped", "train"])
+                                             (16, 1, 312, 312, 264, 5),
+                                             (3, 1, 40, 300, 24, 8),
+                                             (2, 1, 1, 20, 24, 1)],
+                         ids=["grouped", "train", "group1-k8", "group1-n1"])
 def test_interlevel_backward_on_gpu_matches_plain(dev, gen, p, group, n, m,
                                                   c, k):
     """The kernel's weights (its third output) equal the plain version's
@@ -278,12 +350,29 @@ def test_nn_distance_backward_on_gpu_matches_cpu(dev, gen):
         torch.testing.assert_close(g, c, atol=1e-6, rtol=1e-6)
 
 
-def _chain_inputs(gen, dev, b, num_n, k, n, g):
-    z = torch.randn((b, num_n, g), generator=gen, device=dev)
+def _chain_inputs(gen, dev, b, num_n, k, n, g, layout="lists"):
+    """``lists``: separate tensors, an int32 index view.  ``layer``: the
+    arguments as ``DenseEdgeConv`` passes them, separate products for z
+    and the stages' terms, the chain blocks as row blocks of transposed
+    weights.  ``product-int32`` / ``product-int64``: z and the stages'
+    terms as views of one ``(B, N, (n + 1) G)`` product instead."""
+    dtype = torch.int64 if layout == "product-int64" else torch.int32
     # one column more than k, cut off as the edge conv drops the self
     # neighbour: a view that is not contiguous
     idx = torch.randint(0, num_n, (b, num_n, k + 1), generator=gen,
-                        device=dev, dtype=torch.int32)[..., 1:]
+                        device=dev, dtype=dtype)[..., 1:]
+    if layout != "lists":
+        prod = torch.randn((b, num_n, (n + 1) * g), generator=gen, device=dev)
+        w = [0.3 * torch.randn((g, g * i + 3), generator=gen, device=dev).t()
+             for i in range(1, n)]
+        chain_w = [w[i - 1][g * j:g * (j + 1)] for i in range(1, n)
+                   for j in range(i)]
+        if layout == "layer":
+            return (prod[..., :g].contiguous(), idx,
+                    [t.contiguous() for t in prod[..., g:].split(g, -1)],
+                    chain_w)
+        return prod[..., :g], idx, list(prod[..., g:].split(g, -1)), chain_w
+    z = torch.randn((b, num_n, g), generator=gen, device=dev)
     pts = [torch.randn((b, num_n, g), generator=gen, device=dev)
            for _ in range(n)]
     chain_w = [0.3 * torch.randn((g, g), generator=gen, device=dev)
@@ -291,17 +380,38 @@ def _chain_inputs(gen, dev, b, num_n, k, n, g):
     return z, idx, pts, chain_w
 
 
-@pytest.mark.parametrize("b,num_n,k,n,g", [
-    (8, 312, 32, 3, 12), (3, 40, 5, 1, 4), (3, 40, 5, 2, 4), (2, 33, 7, 3, 5),
-    (2, 50, 40, 4, 20), (2, 17, 1, 4, 32), (1, 1, 1, 2, 1), (70, 9, 33, 3, 24)],
-    ids=["level1", "n1", "n2", "odd-g", "k-over-warp", "widest", "ones",
-         "g24"])
-def test_edge_conv_chain_kernel_matches_plain(dev, gen, b, num_n, k, n, g):
+#: (B, N, k, n, G, layout)
+_CHAIN_CASES = {
+    "level1": (8, 312, 32, 3, 12, "lists"),
+    "n1": (3, 40, 5, 1, 4, "lists"),
+    "n2": (3, 40, 5, 2, 4, "lists"),
+    "odd-g": (2, 33, 7, 3, 5, "lists"),
+    "k-over-warp": (2, 50, 40, 4, 20, "lists"),
+    "widest": (2, 17, 1, 4, 32, "lists"),
+    "ones": (1, 1, 1, 2, 1, "lists"),
+    "g24": (70, 9, 33, 3, 24, "lists"),
+    "level4-views": (320, 312, 32, 3, 12, "product-int32"),
+    "level1-layer": (8, 312, 32, 3, 12, "layer"),
+    "level4-layer": (320, 312, 32, 3, 12, "layer"),
+    "int64-view": (8, 312, 32, 3, 12, "product-int64"),
+    "k-below-warp-views": (3, 40, 17, 3, 12, "product-int64"),
+    "k-over-warp-views": (2, 50, 70, 2, 8, "product-int32"),
+    "odd-g-views": (2, 33, 7, 3, 5, "product-int64"),
+    "g6-views": (4, 40, 32, 4, 6, "product-int32")}
+
+
+@pytest.mark.parametrize("b,num_n,k,n,g,layout", list(_CHAIN_CASES.values()),
+                         ids=list(_CHAIN_CASES))
+def test_edge_conv_chain_kernel_matches_plain(dev, gen, b, num_n, k, n, g,
+                                              layout):
     """Every stage count and padded width the kernel is instantiated for,
-    widths that are no multiple of 4 (scalar loads), k above and below a
-    warp, a sliced index view: max abs 1e-5 against the plain version (the
-    kernel sums its products in another order than cuBLAS)."""
-    z, idx, pts, chain_w = _chain_inputs(gen, dev, b, num_n, k, n, g)
+    widths that are no multiple of 4 (scalar loads), k above, at and below
+    a warp, a sliced index view: max abs 1e-5 against the plain version (the
+    kernel sums its products in another order than cuBLAS).  In the
+    layer's layout and in views of one product (an int32 or int64 index
+    view, chain blocks that are views of weights) the call launches the
+    kernel and nothing else: no copy runs before it."""
+    z, idx, pts, chain_w = _chain_inputs(gen, dev, b, num_n, k, n, g, layout)
     assert idx.numel() == 1 or not idx.is_contiguous()
     before = tec.KERNEL.launches
     got = tec.edge_conv_chain(z, idx, pts, chain_w, n, g)
@@ -309,10 +419,23 @@ def test_edge_conv_chain_kernel_matches_plain(dev, gen, b, num_n, k, n, g):
     want = tec.edge_conv_chain_plain(z, idx, pts, chain_w, n, g)
     assert got.shape == (b, num_n, n * g)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    # int64 indices and stacked tensors are the same call
-    again = tec.edge_conv_chain(z, idx.long(), torch.stack(pts, 1),
-                                torch.stack(chain_w) if chain_w
-                                else z.new_zeros((0, g, g)), n, g)
+    if layout == "lists":
+        # int64 indices and stacked tensors are the same call
+        again = tec.edge_conv_chain(z, idx.long(), torch.stack(pts, 1),
+                                    torch.stack(chain_w) if chain_w
+                                    else z.new_zeros((0, g, g)), n, g)
+        assert torch.equal(again, got)
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = tec.edge_conv_chain(z, idx, pts, chain_w, n, g)
+        torch.cuda.synchronize()
+    ran = [ev.name for ev in prof.events()
+           if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation]
+    assert len(ran) == 1 and "edgeconv_kernel" in ran[0], ran
     assert torch.equal(again, got)
 
 

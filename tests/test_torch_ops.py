@@ -253,6 +253,31 @@ def test_fps_plan_rejects_bad_calls(b, n, m, sms):
 
 
 # ---------------------------------------------------------- interlevel
+@pytest.mark.parametrize("n,want", [
+    (312, (8, 39, 320)), (1024, (8, 128, 1024)), (1, (1, 1, 32)),
+    (7, (7, 1, 32)), (9, (5, 2, 32)), (40, (8, 5, 64)), (100, (8, 13, 128)),
+    (2, (2, 1, 32))],
+    ids=["sub-patch", "max-n", "one-query", "fewer-than-8", "cluster-of-5",
+         "small", "hundred", "two-queries"])
+def test_interlevel_plan(n, want):
+    """The interlevel kernel's layout: the main path's sub-patches of 312
+    queries on clusters of 8 blocks of 320 threads (a team of 8 lanes a
+    query), the largest N, fewer queries than blocks, and clusters cut so
+    that every block holds a query."""
+    plan = til.interlevel_plan(n)
+    assert tuple(plan) == want
+    assert (plan.cluster - 1) * plan.queries < n <= plan.cluster * plan.queries
+    assert plan.cluster <= til.MAX_CLUSTER
+    assert plan.queries * til.TEAM <= plan.threads <= 1024
+    assert plan.threads % 32 == 0
+
+
+@pytest.mark.parametrize("n", [0, 1025], ids=["no-query", "n-over-1024"])
+def test_interlevel_plan_rejects_bad_layouts(n):
+    with pytest.raises(ValueError, match="interlevel: "):
+        til.interlevel_plan(n)
+
+
 def _interlevel_inputs(rng, p, g, n, m, c):
     """Previous sets with duplicate and phantom columns; queries well
     apart from every tie (the JAX kNN ranks in matmul form, the port by

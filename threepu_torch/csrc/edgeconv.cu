@@ -20,189 +20,308 @@
 // against 46 MB of inputs and output (0.014 ms at 3.35 TB/s).  The
 // (B, N, k, G) tensors of the plain version, 153 MB each, never exist.
 //
-// Design: one warp per point, lanes stride over the k neighbours (k = 32: one
-// lane each).  A lane gathers its neighbour's G floats of z (float4 loads
-// where G is a multiple of 4 and the arrays are 16-byte aligned), keeps the
-// n stage vectors and a running max per output channel in registers, and reads
-// the n(n-1)/2 weight blocks from shared memory, where the block loaded them
-// once, zero-padded to GP x GP (a broadcast read: every lane wants the same
-// weight).  The products are fused multiply-adds over the source channel, in
-// increasing order, block (i, 0) first: the plain version's cuBLAS products
-// round the same way up to the order of the sum.  A butterfly of warp shuffles
-// finishes the max over neighbours and lane 0 writes the point's n * G
-// channels.  A block of 8 warps walks points with a grid stride, so the
-// weights are staged once per block.  The kernel is instantiated per stage
-// count n = 1..4 and padded width GP in {4, 8, 12, 16, 24, 32}, so that every
-// register array has a static size; channels from G up to GP are zeros that
-// the sums carry along.  An index outside [0, N) traps.
+// Design: 16 lanes a point, two neighbours a lane (k <= 32 on the main
+// path; a larger k takes rounds of 32), two points a warp.  A lane gathers
+// its neighbours' G floats of z (float4 loads where G, the strides and the
+// arrays allow), runs the n stages of both in registers, and reads the
+// n(n-1)/2 weight blocks from shared memory, where the block staged them
+// once, zero-padded to GP x GP: a broadcast float4 that feeds eight fused
+// multiply-adds, four for each neighbour (with one neighbour a lane a read
+// fed four, and the kernel was 1.2x slower at B = 320: PERF.md).  The
+// products are fused multiply-adds over the source channel, in increasing
+// order, block (i, 0) first: the plain version's cuBLAS products round the
+// same way up to the order of the sum.  The stage vectors are the lane's
+// candidates for the max themselves, so no running max is kept (a round of
+// a larger k folds its result into the few channels the lane ends with).
+// The max over the neighbours is a reduce-scatter: at each of four xor
+// steps a lane keeps half of its channels and trades the other half with
+// its partner, so the n * GP channels end spread over the point's lanes
+// after ~n * GP shuffles (35 at n * G = 36, where a butterfly on every
+// channel took 180), and the lanes write the point's row together.  Blocks
+// of 4 warps, held to 96 registers a thread (5 blocks an SM), walk points
+// with a grid stride, so the weights are staged once per block.  z, idx and
+// pts are read through their strides, idx as int32 or int64: the wrapper
+// passes the edge conv's sliced index view and the layer's one product of z
+// and the per-point terms as they are.  The kernel is instantiated per
+// stage count n = 1..4 and padded width GP in {4, 8, 12, 16, 24, 32}, so
+// that every register array has a static size; channels from G up to GP
+// are zeros that the sums carry along.  An index outside [0, N) traps.
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 // blocks per SM that the grid is cut to: enough to even out the tail
 constexpr int kBlocksPerSm = 16;
+constexpr int kMaxStages = 4;
+constexpr int kMaxBlocks = kMaxStages * (kMaxStages - 1) / 2;
+// blocks an SM that the register allocation of the instantiations with
+// n * GP <= 48 (the main path's is 36) must leave room for: 96 registers
+constexpr int kMinBlocks = 5;
+// neighbours a lane: 16 lanes a point, two points a warp, each weight read
+// feeding both neighbours' products
+constexpr int kNpl = 2;
+
+}  // namespace
+
+// One call's arrays, passed by value to the kernel (the C entry point takes
+// its address; ops/edgeconv.py packs it, `_ARGS`).  Strides count
+// elements; every stage's and z's and idx's last stride is 1.
+struct EdgeConvArgs {
+  const float* z;  // (bsz, n_pts, g): z + b * z_sb + p * z_sp + c
+  long long z_sb, z_sp;
+  const void* idx;  // (bsz, n_pts, k) int32 or int64 (idx64)
+  long long idx_sb, idx_sp;
+  const float* pts[kMaxStages];  // stage s: (bsz, n_pts, g)
+  long long pts_sb[kMaxStages], pts_sp[kMaxStages];
+  const float* w[kMaxBlocks];  // block (i, jj): (g, g), (r, c) at r*w_sr + c*w_sc
+  long long w_sr[kMaxBlocks], w_sc[kMaxBlocks];
+  float* out;  // (bsz, n_pts, n * g), contiguous
+  int bsz, n_pts, k, n, g, idx64;
+};
+
+namespace {
+
+// The max over the warp of C channels, scattered: at step OFF a lane keeps
+// the lower or upper half (by its lane bit OFF) of the channels it holds,
+// and takes the max with its partner's copy of that half.  A lane ends
+// with the channels [base, base + cnt) of the row in res[0, cnt).  Every
+// lane of the warp must call it.
+template <int C, int OFF>
+struct Scatter {
+  static constexpr int H = (C + 1) / 2;
+  static constexpr int kOut = Scatter<H, OFF / 2>::kOut;
+  __device__ __forceinline__ static void run(const float (&v)[C],
+                                             float (&res)[kOut], int lane,
+                                             int& base, int& cnt) {
+    const bool hi = (lane & OFF) != 0;
+    float o[H];
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float lo_v = v[i];
+      const float hi_v = H + i < C ? v[H + i < C ? H + i : 0] : -INFINITY;
+      const float send = hi ? lo_v : hi_v;
+      o[i] = fmaxf(hi ? hi_v : lo_v,
+                   __shfl_xor_sync(threepu::kFullMask, send, OFF));
+    }
+    if (hi) {
+      base += H;
+      cnt = max(cnt - H, 0);
+    } else {
+      cnt = min(cnt, H);
+    }
+    Scatter<H, OFF / 2>::run(o, res, lane, base, cnt);
+  }
+};
+
+template <int C>
+struct Scatter<C, 0> {
+  static constexpr int kOut = C;
+  __device__ __forceinline__ static void run(const float (&v)[C],
+                                             float (&res)[C], int, int&,
+                                             int&) {
+#pragma unroll
+    for (int i = 0; i < C; ++i) res[i] = v[i];
+  }
+};
 
 template <int NS, int GP>
-__global__ void __launch_bounds__(kThreads)
-edgeconv_kernel(const float* __restrict__ z, const int* __restrict__ idx,
-                const float* __restrict__ pts, const float* __restrict__ w,
-                float* __restrict__ out, long long points, int n_pts, int k,
-                int g, bool vec) {
+__global__ void __launch_bounds__(kThreads, NS * GP <= 48 ? kMinBlocks : 1)
+edgeconv_kernel(const EdgeConvArgs a, long long points, bool vec) {
   constexpr int kChain = NS * (NS - 1) / 2;
   constexpr int kQuads = GP / 4;
+  constexpr int kCh = NS * GP;
+  // kLanes lanes a point, kNpl neighbours a lane, kNpl points a warp
+  constexpr int kLanes = 32 / kNpl;
+  using Red = Scatter<kCh, kLanes / 2>;
   __shared__ float4 ws[kChain > 0 ? kChain * GP * kQuads : 1];
   float* wsf = reinterpret_cast<float*>(ws);
-  for (int e = threadIdx.x; e < kChain * GP * GP; e += kThreads) {
-    const int blk = e / (GP * GP), r = (e / GP) % GP, c = e % GP;
-    wsf[e] = (r < g && c < g) ? w[(blk * g + r) * g + c] : 0.f;
+  const int g = a.g, n_pts = a.n_pts, k = a.k;
+#pragma unroll
+  for (int blk = 0; blk < kChain; ++blk) {
+    const float* wb = a.w[blk];
+    const long long sr = a.w_sr[blk], sc = a.w_sc[blk];
+    for (int e = threadIdx.x; e < GP * GP; e += kThreads) {
+      const int r = e / GP, c = e % GP;
+      wsf[blk * GP * GP + e] = (r < g && c < g) ? wb[r * sr + c * sc] : 0.f;
+    }
   }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (long long p = static_cast<long long>(blockIdx.x) * kWarps + warp;
-       p < points; p += static_cast<long long>(gridDim.x) * kWarps) {
+  const int lp = lane % kLanes;  // the lane's place among its point's lanes
+  for (long long p0 = (static_cast<long long>(blockIdx.x) * kWarps + warp) *
+                      kNpl;
+       p0 < points; p0 += static_cast<long long>(gridDim.x) * kWarps * kNpl) {
+    // a warp's last point may lie past the end: its lanes run the last
+    // point and write nothing, so that every lane takes part in the max
+    const long long p_own = p0 + lane / kLanes;
+    const long long p = p_own < points ? p_own : points - 1;
     const long long b = p / n_pts;
     const int i_pt = static_cast<int>(p - b * n_pts);
-    const float* zb = z + b * n_pts * g;
-    const int* ip = idx + p * k;
-    // pt_s of this point: pts is (B, NS, N, G)
-    const float* pp = pts + (b * NS * n_pts + i_pt) * g;
-    const size_t stage_stride = static_cast<size_t>(n_pts) * g;
-
-    float best[NS][GP];
+    const float* zb = a.z + b * a.z_sb;
+    const long long ioff = b * a.idx_sb + i_pt * a.idx_sp;
+    const float* pp[NS];
 #pragma unroll
     for (int s = 0; s < NS; ++s)
-#pragma unroll
-      for (int c = 0; c < GP; ++c) best[s][c] = -INFINITY;
+      pp[s] = a.pts[s] + b * a.pts_sb[s] + i_pt * a.pts_sp[s];
 
-    for (int j = lane; j < k; j += 32) {
-      const int nb = ip[j];
-      if (static_cast<unsigned>(nb) >= static_cast<unsigned>(n_pts)) __trap();
-      const float* zr = zb + static_cast<size_t>(nb) * g;
-      float gs[NS][GP];
-      // stage 0: relu(z[nb] + pt_0)
-      if (vec) {
+    float best[Red::kOut];
+    int base = 0, cnt = kCh;
 #pragma unroll
-        for (int q = 0; q < kQuads; ++q) {
-          float4 a = make_float4(0.f, 0.f, 0.f, 0.f), t = a;
-          if (4 * q < g) {
-            a = reinterpret_cast<const float4*>(zr)[q];
-            t = reinterpret_cast<const float4*>(pp)[q];
-          }
-          gs[0][4 * q + 0] = fmaxf(a.x + t.x, 0.f);
-          gs[0][4 * q + 1] = fmaxf(a.y + t.y, 0.f);
-          gs[0][4 * q + 2] = fmaxf(a.z + t.z, 0.f);
-          gs[0][4 * q + 3] = fmaxf(a.w + t.w, 0.f);
+    for (int i = 0; i < Red::kOut; ++i) best[i] = -INFINITY;
+    for (int j0 = 0; j0 < k; j0 += 32) {
+      // neighbours j0 + lp + u * kLanes, u < kNpl
+      float gs[kNpl][NS][GP];
+#pragma unroll
+      for (int u = 0; u < kNpl; ++u) {
+        const int j = j0 + lp + u * kLanes;
+        int nb = 0;
+        if (j < k) {
+          const long long v =
+              a.idx64 ? static_cast<const long long*>(a.idx)[ioff + j]
+                      : static_cast<const int*>(a.idx)[ioff + j];
+          if (static_cast<unsigned long long>(v) >=
+              static_cast<unsigned long long>(n_pts))
+            __trap();
+          nb = static_cast<int>(v);
         }
-      } else {
-#pragma unroll
-        for (int c = 0; c < GP; ++c)
-          gs[0][c] = c < g ? fmaxf(zr[c] + pp[c], 0.f) : 0.f;
-      }
-      // stages 1 .. NS-1: block (i, jj) multiplies g_{i-1-jj}
-      int blk = 0;
-#pragma unroll
-      for (int i = 1; i < NS; ++i) {
-        float y[GP];
-#pragma unroll
-        for (int c = 0; c < GP; ++c) y[c] = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < i; ++jj) {
-          const float4* wb = ws + blk * GP * kQuads;
-#pragma unroll
-          for (int r = 0; r < GP; ++r) {
-            const float src = gs[i - 1 - jj][r];
-#pragma unroll
-            for (int q = 0; q < kQuads; ++q) {
-              const float4 wv = wb[r * kQuads + q];
-              y[4 * q + 0] = fmaf(src, wv.x, y[4 * q + 0]);
-              y[4 * q + 1] = fmaf(src, wv.y, y[4 * q + 1]);
-              y[4 * q + 2] = fmaf(src, wv.z, y[4 * q + 2]);
-              y[4 * q + 3] = fmaf(src, wv.w, y[4 * q + 3]);
-            }
-          }
-          ++blk;
-        }
-        const float* pi = pp + i * stage_stride;
-#pragma unroll
-        for (int c = 0; c < GP; ++c) {
-          const float v = c < g ? y[c] + pi[c] : 0.f;
-          gs[i][c] = i == NS - 1 ? v : fmaxf(v, 0.f);
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-#pragma unroll
-        for (int c = 0; c < GP; ++c) best[s][c] = fmaxf(best[s][c], gs[s][c]);
-    }
-
-    // max over the lanes; lanes beyond k hold -inf
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-#pragma unroll
-      for (int c = 0; c < GP; ++c)
-        if (c < g) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            best[s][c] = fmaxf(best[s][c], __shfl_xor_sync(threepu::kFullMask,
-                                                           best[s][c], off));
-        }
-
-    // out (B, N, NS * G): stage-major, reversed, [g_{NS-1}, ..., g_0]
-    if (lane == 0) {
-      float* op = out + p * NS * g;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        float* os = op + (NS - 1 - s) * g;
+        const float* zr = zb + nb * a.z_sp;
+        // stage 0: relu(z[nb] + pt_0)
         if (vec) {
 #pragma unroll
-          for (int q = 0; q < kQuads; ++q)
-            if (4 * q < g)
-              reinterpret_cast<float4*>(os)[q] =
-                  make_float4(best[s][4 * q], best[s][4 * q + 1],
-                              best[s][4 * q + 2], best[s][4 * q + 3]);
+          for (int q = 0; q < kQuads; ++q) {
+            float4 za = make_float4(0.f, 0.f, 0.f, 0.f), t = za;
+            if (4 * q < g) {
+              za = reinterpret_cast<const float4*>(zr)[q];
+              t = reinterpret_cast<const float4*>(pp[0])[q];
+            }
+            gs[u][0][4 * q + 0] = fmaxf(za.x + t.x, 0.f);
+            gs[u][0][4 * q + 1] = fmaxf(za.y + t.y, 0.f);
+            gs[u][0][4 * q + 2] = fmaxf(za.z + t.z, 0.f);
+            gs[u][0][4 * q + 3] = fmaxf(za.w + t.w, 0.f);
+          }
         } else {
 #pragma unroll
           for (int c = 0; c < GP; ++c)
-            if (c < g) os[c] = best[s][c];
+            gs[u][0][c] = c < g ? fmaxf(zr[c] + pp[0][c], 0.f) : 0.f;
         }
+      }
+      bool valid[kNpl];
+#pragma unroll
+      for (int u = 0; u < kNpl; ++u) valid[u] = j0 + lp + u * kLanes < k;
+      // the lane's max in output order [g_{NS-1}, ..., g_0]; neighbours
+      // past k count as -inf
+      float v[kCh];
+      // stages 1 .. NS-1, four output channels at a time: block (i, jj)
+      // multiplies g_{i-1-jj}, and each weight read serves the lane's kNpl
+      // neighbours; the last stage goes straight into the max
+#pragma unroll
+      for (int i = 1; i < NS; ++i) {
+#pragma unroll
+        for (int q = 0; q < kQuads; ++q) {
+          float y[kNpl][4];
+#pragma unroll
+          for (int u = 0; u < kNpl; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) y[u][e] = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < i; ++jj) {
+            const float4* wb = ws + (i * (i - 1) / 2 + jj) * GP * kQuads;
+#pragma unroll
+            for (int r = 0; r < GP; ++r) {
+              const float4 wv = wb[r * kQuads + q];
+#pragma unroll
+              for (int u = 0; u < kNpl; ++u) {
+                const float src = gs[u][i - 1 - jj][r];
+                y[u][0] = fmaf(src, wv.x, y[u][0]);
+                y[u][1] = fmaf(src, wv.y, y[u][1]);
+                y[u][2] = fmaf(src, wv.z, y[u][2]);
+                y[u][3] = fmaf(src, wv.w, y[u][3]);
+              }
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 4 * q + e;
+            const float pt = c < g ? pp[i][c] : 0.f;
+            float m = -INFINITY;
+#pragma unroll
+            for (int u = 0; u < kNpl; ++u) {
+              const float yv = c < g ? y[u][e] + pt : 0.f;
+              if (i < NS - 1)
+                gs[u][i][c] = fmaxf(yv, 0.f);
+              else
+                m = valid[u] ? fmaxf(m, yv) : m;
+            }
+            if (i == NS - 1) v[c] = m;
+          }
+        }
+      }
+      // the stages before the last (and the only one when NS = 1)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        if (NS > 1 && s == NS - 1) continue;
+#pragma unroll
+        for (int c = 0; c < GP; ++c) {
+          float m = -INFINITY;
+#pragma unroll
+          for (int u = 0; u < kNpl; ++u)
+            m = valid[u] ? fmaxf(m, gs[u][s][c]) : m;
+          v[(NS - 1 - s) * GP + c] = m;
+        }
+      }
+      float res[Red::kOut];
+      base = 0;
+      cnt = kCh;
+      Red::run(v, res, lane, base, cnt);
+#pragma unroll
+      for (int i = 0; i < Red::kOut; ++i) best[i] = fmaxf(best[i], res[i]);
+    }
+
+    // out (B, N, NS * G): channel ch of the padded row is stage
+    // ch / GP (output order), column ch % GP
+    if (p_own < points) {
+      float* op = a.out + p * NS * g;
+#pragma unroll
+      for (int i = 0; i < Red::kOut; ++i) {
+        const int ch = base + i, c = ch % GP;
+        if (i < cnt && c < g) op[(ch / GP) * g + c] = best[i];
       }
     }
   }
 }
 
 template <int NS, int GP>
-int launch(const float* z, const int* idx, const float* pts, const float* w,
-           float* out, long long points, int n_pts, int k, int g,
-           cudaStream_t stream) {
+int launch(const EdgeConvArgs& a, cudaStream_t stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long want = (points + kWarps - 1) / kWarps;
+  const long long points = static_cast<long long>(a.bsz) * a.n_pts;
+  const long long want = (points + kWarps * kNpl - 1) / (kWarps * kNpl);
   const long long cap = static_cast<long long>(sms) * kBlocksPerSm;
   const int blocks = static_cast<int>(want < cap ? want : cap);
-  const auto aligned = [](const void* ptr) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  // float4 rows: G a multiple of 4 and every row 16-byte aligned
+  const auto rows16 = [](const float* ptr, long long sb, long long sp) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 4 == 0 &&
+           sp % 4 == 0;
   };
-  const bool vec = g % 4 == 0 && aligned(z) && aligned(pts) && aligned(out);
-  edgeconv_kernel<NS, GP><<<blocks, kThreads, 0, stream>>>(
-      z, idx, pts, w, out, points, n_pts, k, g, vec);
+  bool vec = a.g % 4 == 0 && rows16(a.z, a.z_sb, a.z_sp);
+  for (int s = 0; s < NS; ++s)
+    vec = vec && rows16(a.pts[s], a.pts_sb[s], a.pts_sp[s]);
+  edgeconv_kernel<NS, GP><<<blocks, kThreads, 0, stream>>>(a, points, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NS>
-int launch_width(const float* z, const int* idx, const float* pts,
-                 const float* w, float* out, long long points, int n_pts,
-                 int k, int g, cudaStream_t stream) {
+int launch_width(const EdgeConvArgs& a, cudaStream_t stream) {
 #define THREEPU_EC_WIDTH(GP) \
-  if (g <= GP)               \
-    return launch<NS, GP>(z, idx, pts, w, out, points, n_pts, k, g, stream);
+  if (a.g <= GP) return launch<NS, GP>(a, stream);
   THREEPU_EC_WIDTH(4)
   THREEPU_EC_WIDTH(8)
   THREEPU_EC_WIDTH(12)
@@ -215,25 +334,23 @@ int launch_width(const float* z, const int* idx, const float* pts,
 
 }  // namespace
 
-// z (bsz, n_pts, g) float32, idx (bsz, n_pts, k) int32 in [0, n_pts),
-// pts (bsz, n, n_pts, g) float32, w (n(n-1)/2, g, g) float32 (unread when
-// n = 1) -> out (bsz, n_pts, n * g) float32.  Needs 1 <= n <= 4,
+// *args: z (bsz, n_pts, g) float32, idx (bsz, n_pts, k) int32 or int64 in
+// [0, n_pts), the n stages' pts (bsz, n_pts, g) float32 and the n(n-1)/2
+// weight blocks (g, g) float32 (none when n = 1), all read through their
+// strides -> out (bsz, n_pts, n * g) float32.  Needs 1 <= n <= 4,
 // 1 <= g <= 32, bsz, n_pts, k >= 1 (the wrapper checks them; another n or g
 // returns cudaErrorInvalidValue).
-extern "C" int threepu_edge_conv_chain(const float* z, const int* idx,
-                                       const float* pts, const float* w,
-                                       float* out, int bsz, int n_pts, int k,
-                                       int n, int g, cudaStream_t stream) {
-  const long long points = static_cast<long long>(bsz) * n_pts;
-  switch (n) {
+extern "C" int threepu_edge_conv_chain(const EdgeConvArgs* args,
+                                       cudaStream_t stream) {
+  switch (args->n) {
     case 1:
-      return launch_width<1>(z, idx, pts, w, out, points, n_pts, k, g, stream);
+      return launch_width<1>(*args, stream);
     case 2:
-      return launch_width<2>(z, idx, pts, w, out, points, n_pts, k, g, stream);
+      return launch_width<2>(*args, stream);
     case 3:
-      return launch_width<3>(z, idx, pts, w, out, points, n_pts, k, g, stream);
+      return launch_width<3>(*args, stream);
     case 4:
-      return launch_width<4>(z, idx, pts, w, out, points, n_pts, k, g, stream);
+      return launch_width<4>(*args, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

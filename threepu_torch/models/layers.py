@@ -87,25 +87,27 @@ class DenseEdgeConv(nn.Module):
         w = [mlp.matrix() for mlp in self.mlps]
         b = [mlp.bias for mlp in self.mlps]
         wc, wd = w[0][:c], w[0][c:]
-        if chain_kernel:
-            pts = [x @ (wc - wd) + b[0]]
-            chain_w = []
-            for i in range(1, self.n):
-                pts.append(x @ w[i][g * i:] + b[i])
-                chain_w += [w[i][g * j:g * (j + 1)] for j in range(i)]
-            pooled = edge_conv_chain(x @ wd, idx, pts, chain_w, self.n, g)
-            return torch.cat([pooled, x], dim=-1), idx
-        zn = batched_gather(x @ wd, idx)                     # (B, N, k, G)
+        z = x @ wd                                           # (B, N, G)
         point_term = x @ (wc - wd) + b[0]                    # (B, N, G)
+        # the per-point part of stages 1 .. n-1 (kernel rows [g_{i-1}, ...,
+        # g_0, x])
+        acc = [x @ w[i][g * i:] + b[i] for i in range(1, self.n)]
+        if chain_kernel:
+            # the same products as below, so both paths see the same
+            # per-point terms; the chain blocks are views of the weights
+            chain_w = [w[i][g * j:g * (j + 1)] for i in range(1, self.n)
+                       for j in range(i)]
+            pooled = edge_conv_chain(z, idx, [point_term, *acc], chain_w,
+                                     self.n, g)
+            return torch.cat([pooled, x], dim=-1), idx
+        zn = batched_gather(z, idx)                          # (B, N, k, G)
         gs: List[torch.Tensor] = [torch.relu(zn + point_term[..., None, :])]
         for i in range(1, self.n):
-            # kernel rows: [g_{i-1}, ..., g_0, x]
-            acc = x @ w[i][g * i:] + b[i]                    # per-point part
             per_k = None
             for j in range(i):
                 term = gs[i - 1 - j] @ w[i][g * j:g * (j + 1)]
                 per_k = term if per_k is None else per_k + term
-            y = per_k + acc[..., None, :]
+            y = per_k + acc[i - 1][..., None, :]
             gs.append(y if i == self.n - 1 else torch.relu(y))
         pooled = [torch.amax(gi, dim=-2) for gi in reversed(gs)]
         return torch.cat(pooled + [x], dim=-1), idx

@@ -31,13 +31,15 @@ pick's distance, which differs when that pick is a duplicate).
 
 - :func:`interlevel_plain`: the plain PyTorch version.
 - :func:`interlevel`: the CUDA kernel ``csrc/interlevel.cu`` on CUDA
-  tensors, :func:`interlevel_plain` on CPU tensors.
+  tensors, :func:`interlevel_plain` on CPU tensors.  The kernel spreads
+  each sub-patch's queries over a thread-block cluster, a team of
+  :data:`TEAM` lanes a query; :func:`interlevel_plan` sizes the cluster.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -47,14 +49,41 @@ from threepu_torch.ops.gather import batched_gather
 
 #: rank of a duplicate (or phantom) previous point: after every real one
 PENALTY = 1e30
-#: kernel limits: k neighbours in registers, one thread per query
+#: kernel limits: k neighbours in registers, N queries of a sub-patch over
+#: one cluster of at most MAX_CLUSTER blocks of at most 1024 threads
 MAX_K = 8
 MAX_N = 1024
+#: lanes that share a query's scan (as csrc/interlevel.cu is built), and
+#: the largest cluster (the portable maximum on Hopper)
+TEAM = 8
+MAX_CLUSTER = 8
 
 KERNEL = Kernel("threepu_interlevel",
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6,
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9,
                 source="threepu_torch/csrc/interlevel.cu",
                 replaces="threepu/ops/interlevel_pallas.py:94")
+
+
+class InterlevelPlan(NamedTuple):
+    """How the kernel lays out one sub-patch: ``cluster`` blocks of
+    ``queries`` queries each (the last may hold fewer), ``threads``
+    threads a block (a team of :data:`TEAM` lanes a query, whole warps)."""
+    cluster: int
+    queries: int
+    threads: int
+
+
+def interlevel_plan(n: int) -> InterlevelPlan:
+    """The kernel's layout for sub-patches of ``n`` queries, which the C
+    entry point takes as given: a cluster of up to :data:`MAX_CLUSTER`
+    blocks, as many as leave every block at least one query.  With
+    ``n <= 1024`` every block stays within 1024 threads."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"interlevel: no layout for N={n}: need "
+                         f"1 <= N <= {MAX_N}")
+    per = -(-n // min(MAX_CLUSTER, n))
+    cluster = -(-n // per)            # no block without a query
+    return InterlevelPlan(cluster, per, -(-per * TEAM // 32) * 32)
 
 
 def _plain_picks(q_xyz, prev_xyz, prev_dup, k):
@@ -91,8 +120,9 @@ def _plain(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, with_w=True):
 
 
 def _launch(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, with_w=True):
-    """The kernel's ``(interp, idx, w)``; ``w`` is None (and the kernel
-    writes none) unless ``with_w``."""
+    """The kernel's ``(interp, idx, w)``, laid out by
+    :func:`interlevel_plan`; ``w`` is None (and the kernel writes none)
+    unless ``with_w``."""
     for name, t, dt, nd in (("q_xyz", q_xyz, torch.float32, 3),
                             ("xq", xq, torch.float32, 3),
                             ("prev_xyz", prev_xyz, torch.float32, 3),
@@ -113,6 +143,7 @@ def _launch(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, with_w=True):
     if not 1 <= k <= min(m, MAX_K) or not 1 <= n <= MAX_N:
         raise ValueError(f"interlevel: need 1 <= k <= min(M, {MAX_K}) and "
                          f"1 <= N <= {MAX_N}, got k={k}, M={m}, N={n}")
+    plan = interlevel_plan(n)
     out = torch.empty((b, n, c), dtype=torch.float32, device=q_xyz.device)
     idx = torch.empty((b, n, k), dtype=torch.int32, device=q_xyz.device)
     w = (torch.empty((b, n, k), dtype=torch.float32, device=q_xyz.device)
@@ -120,7 +151,7 @@ def _launch(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k, with_w=True):
     KERNEL(q_xyz.data_ptr(), xq.data_ptr(), prev_xyz.data_ptr(),
            prev_feat.data_ptr(), prev_dup.view(torch.uint8).data_ptr(),
            out.data_ptr(), idx.data_ptr(), None if w is None else w.data_ptr(),
-           b, n, p, m, c, k)
+           b, n, p, m, c, k, *plan)
     return out, idx, w
 
 
@@ -171,6 +202,6 @@ def interlevel(q_xyz: torch.Tensor, xq: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`interlevel_plain`'s result, by the CUDA kernel on CUDA
     tensors (contiguous float32, bool ``prev_dup``; ``k <= 8``,
-    ``N <= 1024``)."""
+    ``N <= 1024``), laid out by :func:`interlevel_plan`."""
     return _Interlevel.apply(q_xyz, xq, prev_xyz, prev_feat, prev_dup, k,
                              q_xyz.is_cuda)
