@@ -22,21 +22,24 @@ no result line:
    M = 312), its weights output and the ``prev_feat`` gradient of its
    backward (the cluster plan and the selection's issue-slot floor are
    printed for each);
-   the one-way nearest
-   neighbour of the Chamfer loss ((16, 624) x (16, 624), the train
-   loss, and the JAX package's 80k output against the 80k ground truth)
-   must match exactly, values and indices; the fused edge-conv chain
+   the nearest neighbours of the Chamfer loss, one way and both ways in
+   one launch, laid out by the plan ((16, 624) x (16, 624), the train
+   loss, and the JAX package's 80k output against the 80k ground truth,
+   then three odd shapes: one query a cloud, one candidate, N != M) must
+   match exactly, values and indices, with the plan, the clusters the
+   card holds at once, the time of calls replayed back to back in a CUDA
+   graph (free of the host's launch time) and the issue-slot floor
+   printed beside the times; the fused edge-conv chain
    (B = 8, 80, 160 and 320 sub-patches of N = 312, k = 32, G = 12, n = 3,
    the calls of levels 1 to 4, in the main path's layout: the int32
    ``[..., 1:]`` view of a k+1 selection, the chain blocks as views of
    weights; and two small odd shapes with n = 1 and n = 2)
-   must agree to 1e-5.  Each
-   kernel's time is
-   printed beside its plain version's, the time of one PyTorch call
-   computing the same function where there is one (``torch.topk`` for
-   select, ``torch.cdist(...).min(-1)`` for the Chamfer kernel), and its
-   bound: the least time an H100 SXM could take, the larger of the
-   operations over 67 TFLOP/s fp32 and the bytes over 3.35 TB/s.
+   must agree to 1e-5.  Each kernel's time is printed beside its plain
+   version's, the time of one PyTorch call computing the same function
+   where there is one (``torch.topk`` for select, ``torch.cdist`` and a
+   min each way for the Chamfer kernel), and its bound: the least time
+   an H100 SXM could take, the larger of the operations over 67 TFLOP/s
+   fp32 and the bytes over 3.35 TB/s.
 4. End to end, with the trained weights of
    ``artifacts/prod_clean_final.npz`` and the JAX package's results
    frozen in ``tests/fixtures/torch_port_ref.npz``:
@@ -99,8 +102,9 @@ no result line:
       99.9% of each kind of decision must be the one the CPU would have
       made itself.
    b. Five clipped-Adam steps at ratio 16 with the fixture's re-patch
-      seeds: every loss finite, and the select, interlevel and Chamfer
-      kernels launched in every step; the losses print beside JAX's.
+      seeds: every loss finite, the select and interlevel kernels
+      launched in every step and the Chamfer kernel once a step (both
+      directions in one launch); the losses print beside JAX's.
    c. Warm milliseconds per step at ratio 16: the median of 10 steps
       after 2 warm-up steps, each ending in a device sync.  With
       ``--profile STEPS``, that many more steps run under
@@ -153,6 +157,9 @@ INTERLEVEL_TRAIN_CASE = (16, 1, 312)
 INTERLEVEL_BAND = 1e-5
 #: the train loss's nearest-neighbour shape (B, N) x (B, N)
 CHAMFER_TRAIN_CASE = (16, 624)
+#: (B, N, M) of odd Chamfer shapes: one query a cloud, one candidate, and
+#: N != M over several tiles
+CHAMFER_ODD_CASES = ((3, 1, 700), (3, 700, 1), (2, 300, 2500))
 #: the edge-conv chain (B, N, k, G, n): two small odd shapes, then the
 #: calls of a chunk's levels 1, 2, 3 and 4; max abs band against the plain
 #: version, whose cuBLAS products sum in another order
@@ -332,47 +339,158 @@ def check_interlevel_train(dev, g, card: str) -> None:
           flush=True)
 
 
-def chamfer_inputs(dev, g, b, n):
-    """Two clouds with duplicate points and exact zero distances."""
+def chamfer_inputs(dev, g, b, n, m=None):
+    """Two clouds, ``(b, n, 3)`` and ``(b, m, 3)`` (``m`` defaults to
+    ``n``), with duplicate points and exact zero distances."""
     import torch
+    m = n if m is None else m
     a = torch.randn((b, n, 3), generator=g, device=dev)
-    r = torch.randn((b, n, 3), generator=g, device=dev)
+    r = torch.randn((b, m, 3), generator=g, device=dev)
     r[:, 1::7] = r[:, 0::7][:, :r[:, 1::7].shape[1]]
-    a[:, :n // 10] = r[:, n // 2:n // 2 + n // 10]
+    k = min(n // 10, m - m // 2)
+    a[:, :k] = r[:, m // 2:m // 2 + k]
     return a, r
 
 
-def check_chamfer(a, b, card: str, reps: int) -> dict:
-    """The nearest-neighbour kernel against its plain version on ``a``
-    and ``b``; exact, or raises.  Returns its error, times and bound."""
+def chamfer_issue_floor_ms(pairs: float) -> float:
+    """The Chamfer kernel's issue-slot floor for ``pairs`` (query,
+    candidate) pairs: 9 issue slots a pair (the distance's 8 separately
+    rounded operations and a min) at one a lane a clock, the rate at which
+    :data:`FP32_FLOPS` counts an FMA as two operations (1.98 GHz)."""
+    return pairs * 9.0 / (FP32_FLOPS / 2) * 1e3
+
+
+def chamfer_exact(what: str, got, want) -> None:
+    """Raises unless every tensor of ``got`` equals its ``want``."""
+    import torch
+    for name, g, w in zip(("dist1", "idx1", "dist2", "idx2"), got, want):
+        if not torch.equal(g, w):
+            first = (g != w).nonzero()[0].tolist()
+            raise AssertionError(f"chamfer {what}: {name} differs first at "
+                                 f"{first}")
+
+
+def chamfer_plan_text(a, b) -> str:
+    """The plan of the kernel both ways and one way on ``a`` and ``b``,
+    and the clusters the card holds at once at the plan's block."""
+    import threepu_torch.ops.chamfer as ch_mod
+    (bsz, n, _), m = a.shape, b.shape[1]
+    active = ch_mod.active_clusters(a.device.index)
+    plan = ch_mod.chamfer_plan(bsz, n, m, active)
+    return (f"plan {tuple(plan)} (threads, cluster, tile) for "
+            f"{bsz * (-(-n // plan.threads) - (-m // plan.threads))} query "
+            f"tiles, one way "
+            f"{tuple(ch_mod.chamfer_plan(bsz, n, m, active, False))}; the "
+            f"card holds {[active(plan.threads, cl) for cl in range(1, 9)]} "
+            f"clusters of 1-8 such blocks at once")
+
+
+def check_chamfer_exact(a, b, card: str) -> None:
+    """The nearest-neighbour kernel one way and both ways in one launch,
+    as the plan lays it out, against its plain version: exact, or
+    raises."""
     import torch
     import threepu_torch.ops.chamfer as ch_mod
-    got = ch_mod.nn_one_way(a, b)
-    want = ch_mod.nn_one_way_plain(a, b)
-    torch.cuda.synchronize()
     shape = f"{tuple(a.shape)} x {tuple(b.shape)}"
-    if not torch.equal(got[1], want[1]):
-        first = (got[1] != want[1]).nonzero()[0].tolist()
-        raise AssertionError(f"chamfer {shape}: indices differ first at "
-                             f"{first}")
-    if not torch.equal(got[0], want[0]):
-        raise AssertionError(f"chamfer {shape}: distances differ")
-    del got, want
-    ms = cuda_ms(lambda: ch_mod.nn_one_way(a, b), reps)
-    plain_ms = cuda_ms(lambda: ch_mod.nn_one_way_plain(a, b), 1)
-    library_ms = cuda_ms(lambda: torch.cdist(
-        a, b, compute_mode="donot_use_mm_for_euclid_dist").min(-1), 1)
-    torch.cuda.empty_cache()
+    want = (*ch_mod.nn_one_way_plain(a, b), *ch_mod.nn_one_way_plain(b, a))
+    chamfer_exact(f"{shape} one way", ch_mod.nn_one_way(a, b), want[:2])
+    chamfer_exact(f"{shape} both ways", ch_mod.nn_both_ways(a, b), want)
+    torch.cuda.synchronize()
+    print(f"chamfer {shape}: exact one way and both ways; "
+          f"{chamfer_plan_text(a, b)} [{card}]", flush=True)
+
+
+def check_chamfer(a, b, card: str, reps: int) -> dict:
+    """The nearest-neighbour kernel, one way and both ways in one launch,
+    against its plain version on ``a`` and ``b``: exact, or raises.
+    Returns the both-ways call's error, times and bound; its ``ms`` is the
+    time of a call replayed in a CUDA graph (:func:`graph_us`), device
+    time, and ``eager_ms`` that of eager calls by CUDA events, which at the
+    train shape is mostly the wrapper's host time."""
+    import torch
+    import threepu_torch.ops.chamfer as ch_mod
+    check_chamfer_exact(a, b, card)
     bsz, n, _ = a.shape
     m = b.shape[1]
-    rep = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+    one_ms = cuda_ms(lambda: ch_mod.nn_one_way(a, b), reps)
+    eager_ms = cuda_ms(lambda: ch_mod.nn_both_ways(a, b), reps)
+    ms = graph_us(lambda: ch_mod.nn_both_ways(a, b), reps) / 1e3
+    plain_ms = cuda_ms(lambda: (ch_mod.nn_one_way_plain(a, b),
+                                ch_mod.nn_one_way_plain(b, a)), 1)
+
+    def library():
+        d = torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist")
+        return d.min(-1), d.min(-2)
+
+    library_ms = cuda_ms(library, 1)
+    torch.cuda.empty_cache()
+    pairs = bsz * n * m
+    one = bound(8.0 * pairs, bsz * n * 20 + bsz * m * 12)
+    rep = dict(max_abs_err=0.0, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                library_ms=library_ms,
-               **bound(8.0 * bsz * n * m, bsz * (n + m) * 12 + bsz * n * 8))
-    print(f"chamfer {shape}: exact; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.cdist+min {library_ms:.4f} ms, bound "
-          f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}) [{card}]",
-          flush=True)
+               **bound(16.0 * pairs, bsz * (n + m) * 20))
+    print(f"chamfer {tuple(a.shape)} x {tuple(b.shape)}: kernel one way "
+          f"{one_ms:.4f} ms (bound {one['bound_ms']:.4f} ms, "
+          f"{one['bound_by']}; issue-slot floor "
+          f"{chamfer_issue_floor_ms(pairs):.4f} ms), both ways in one launch "
+          f"{ms:.4f} ms in a CUDA graph, {eager_ms:.4f} ms eager (bound "
+          f"{rep['bound_ms']:.4f} ms, {rep['bound_by']}; "
+          f"issue-slot floor {chamfer_issue_floor_ms(2 * pairs):.4f} ms); "
+          f"plain both ways {plain_ms:.4f} ms, torch.cdist + min both ways "
+          f"{library_ms:.4f} ms [{card}]", flush=True)
     return rep
+
+
+def graph_us(fn, reps: int) -> float:
+    """Microseconds a call of ``fn`` takes on the device when ``reps``
+    calls replay back to back as one CUDA graph: where the host's launch
+    time hides a small kernel from CUDA events around eager calls.  The
+    mean of 3 replays after a warm-up one."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / (3 * reps)
+
+
+def chamfer_times(dev, fx, card: str) -> None:
+    """The Chamfer kernel through the callers every tree of the port has:
+    ``nn_one_way`` (one way) and ``nn_distance``'s forward (both ways), at
+    the fixture's 80k pair and at the train shape: milliseconds by CUDA
+    events around eager calls, microseconds a call replayed in a CUDA graph
+    (:func:`graph_us`), and launches a call.  ``compare_trees.py`` runs it
+    in each tree."""
+    import torch
+    import threepu_torch.ops.chamfer as ch_mod
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = (("80k", [torch.from_numpy(fx[k][None]).to(dev)
+                      for k in ("jax_out", "gt")], 10),
+             ("train", chamfer_inputs(dev, g, *CHAMFER_TRAIN_CASE), 50))
+    with torch.no_grad():
+        for name, (a, b), reps in cases:
+            calls = (("one way", lambda: ch_mod.nn_one_way(a, b)),
+                     ("both ways", lambda: ch_mod.nn_distance(a, b)))
+            for what, fn in calls:
+                before = ch_mod.KERNEL.launches
+                fn()
+                launches = ch_mod.KERNEL.launches - before
+                ms = cuda_ms(fn, reps)
+                dev_us = graph_us(fn, reps)
+                print(f"chamfer {name} {tuple(a.shape)} x {tuple(b.shape)} "
+                      f"{what}: {ms:.4f} ms, in a CUDA graph "
+                      f"{dev_us:.2f} us, {launches} launch(es) a call "
+                      f"[{card}]", flush=True)
 
 
 def edgeconv_inputs(dev, g, b, n_pts, k, growth, n):
@@ -565,11 +683,13 @@ def check_kernels(dev, card: str, fx) -> dict:
               flush=True)
     check_interlevel_train(dev, g, card)
 
+    for b, n, m in CHAMFER_ODD_CASES:
+        check_chamfer_exact(*chamfer_inputs(dev, g, b, n, m), card)
     big = [torch.from_numpy(fx[k][None]).to(dev) for k in ("jax_out", "gt")]
     check_chamfer(*big, card, 10)
     del big
-    report["chamfer"] = check_chamfer(
-        *chamfer_inputs(dev, g, *CHAMFER_TRAIN_CASE), card, 50)
+    train = chamfer_inputs(dev, g, *CHAMFER_TRAIN_CASE)
+    report["chamfer"] = check_chamfer(*train, card, 50)
     report["edgeconv"] = check_edgeconv(dev, g, card)
     return report
 
@@ -904,27 +1024,31 @@ def grad_errors(net, tfx, ratio: int, dev) -> dict:
 
 def decision_sites() -> dict:
     """Where a train step makes its discrete choices, as ``{name: (module,
-    function)}``: every k-smallest selection (the edge convs' kNN, the
-    re-patch and gt-patch picks), the interlevel picks and the Chamfer
-    argmins.  Each function returns ``(values, int32 indices)``."""
+    function, positions)}``: every k-smallest selection (the edge convs'
+    kNN, the re-patch and gt-patch picks), the interlevel picks and the
+    Chamfer argmins of both directions.  Each function returns a tuple
+    whose int32 indices stand at ``positions``: ``(values, indices)``, and
+    ``(dist1, idx1, dist2, idx2)`` for the Chamfer pair."""
     import threepu_torch.models.upsampler as up_mod
     import threepu_torch.ops.chamfer as ch_mod
     import threepu_torch.ops.knn as knn_mod
-    return {"select": (knn_mod, "exact_select"),
-            "interlevel": (up_mod, "interlevel"),
-            "chamfer": (ch_mod, "nn_one_way")}
+    return {"select": (knn_mod, "exact_select", (1,)),
+            "interlevel": (up_mod, "interlevel", (1,)),
+            "chamfer": (ch_mod, "nn_both_ways", (1, 3))}
 
 
 @contextlib.contextmanager
 def recorded_decisions():
     """Yields ``{site: [indices, ...]}``, filled in call order with the
-    indices every :func:`decision_sites` function returns inside."""
+    indices every :func:`decision_sites` function returns inside (a
+    Chamfer call adds its two directions' in turn)."""
     rec = {name: [] for name in decision_sites()}
     with contextlib.ExitStack() as stack:
-        for name, (mod, attr) in decision_sites().items():
-            def record(*args, _orig=getattr(mod, attr), _name=name):
+        for name, (mod, attr, positions) in decision_sites().items():
+            def record(*args, _orig=getattr(mod, attr), _name=name,
+                       _positions=positions):
                 out = _orig(*args)
-                rec[_name].append(out[1].detach())
+                rec[_name].extend(out[p].detach() for p in _positions)
                 return out
             stack.enter_context(mock.patch.object(mod, attr, record))
         yield rec
@@ -960,22 +1084,24 @@ def replayed_decisions(rec: dict):
         agree[name][1] += own.numel()
         return idx
 
-    select, nn_one_way, picks = (knn_mod.exact_select, ch_mod.nn_one_way,
-                                 il_mod._plain_picks)
+    select, nn_both_ways, picks = (knn_mod.exact_select,
+                                   ch_mod.nn_both_ways, il_mod._plain_picks)
 
     def replay_select(d, k):
         idx = take("select", select(d, k)[1])
         return torch.gather(d, -1, idx.long()), idx
 
     def replay_nn(a, b):
-        idx = take("chamfer", nn_one_way(a, b)[1])
-        return sq_dist3(a, batched_gather(b, idx)), idx
+        own = nn_both_ways(a, b)
+        i1, i2 = take("chamfer", own[1]), take("chamfer", own[3])
+        return (sq_dist3(a, batched_gather(b, i1)), i1,
+                sq_dist3(b, batched_gather(a, i2)), i2)
 
     def replay_picks(q_xyz, prev_xyz, prev_dup, k):
         return take("interlevel", picks(q_xyz, prev_xyz, prev_dup, k))
 
     with mock.patch.object(knn_mod, "exact_select", replay_select), \
-            mock.patch.object(ch_mod, "nn_one_way", replay_nn), \
+            mock.patch.object(ch_mod, "nn_both_ways", replay_nn), \
             mock.patch.object(il_mod, "_plain_picks", replay_picks):
         yield agree
     left = [name for name, it in its.items() if next(it, None) is not None]
@@ -1159,6 +1285,10 @@ def train_checks(fx, tfx, card: str, kernels: dict,
         for name, k in train_kernels.items():
             if k.launches <= before[name]:
                 raise AssertionError(f"a train step never launched {name}")
+        chamfer = train_kernels["chamfer"].launches - before["chamfer"]
+        if chamfer != 1:
+            raise AssertionError(f"a train step launched the Chamfer kernel "
+                                 f"{chamfer} times, not once")
     launches = {name: k.launches for name, k in kernels.items()}
     print(f"train-path launches (5 steps): {launches}", flush=True)
     jax_losses = [float(v) for v in tfx["adam_loss"]]

@@ -14,9 +14,12 @@ edge-conv shapes of the ``chip_smoke.py`` beside this script, so that
 every tree times the same shapes; then the edge-conv wrapper's host
 microseconds a call on that script's arguments of the level-1 edge conv
 (``chip_smoke.edgeconv_inputs`` and ``edgeconv_host_us``, the same for
-every tree); then ``chip_smoke.end_to_end`` (the 16x pipeline, launch
-counts, warm seconds per shape) and the warm seconds per shape again
-with the edge-conv toggle ``ops.edgeconv.ENABLED`` on
+every tree); then that script's ``chamfer_times`` (the Chamfer kernel
+one way and both ways through ``nn_one_way`` and ``nn_distance``, at the
+80k and train shapes: events, time in a CUDA graph, launches a call);
+then ``chip_smoke.end_to_end`` (the 16x pipeline, launch counts, warm
+seconds per shape) and the warm seconds per shape again with the
+edge-conv toggle ``ops.edgeconv.ENABLED`` on
 (``chip_smoke.warm_shape_s``), with that run's edge-conv launches per
 shape.  Every output line is prefixed with ``[TREE]``.  Give the trees
 as A B B A to compare two versions on one card with the drift of the
@@ -67,6 +70,7 @@ args = here.edgeconv_inputs(
 print(f"edge conv wrapper, the layer's arguments at B=8 N=312 k=32 G=12 "
       f"n=3: {here.edgeconv_host_us(ec.edge_conv_chain, args):.2f} us of "
       f"host a call [{card}]", flush=True)
+here.chamfer_times(dev, fx, card)
 net = load_net(cs.WEIGHTS, **cs.NET).eval()
 _, off_s = cs.end_to_end(net, fx, card, {
     "select": se.KERNEL, "fps": fp.KERNEL, "interlevel": il.KERNEL,

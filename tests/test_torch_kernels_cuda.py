@@ -302,36 +302,106 @@ def _nn_inputs(gen, dev, b, n, m):
 
 
 @pytest.mark.parametrize("b,n,m", [(16, 624, 624), (2, 300, 2500),
-                                   (3, 129, 1), (1, 5000, 4099)],
+                                   (3, 129, 1), (1, 5000, 4099),
+                                   (3, 1, 700), (2, 2500, 300)],
                          ids=["train", "ragged-tile", "one-candidate",
-                              "three-tiles"])
+                              "three-tiles", "one-query", "n-above-m"])
 def test_nn_kernel_matches_plain(dev, gen, b, n, m):
-    """Bit for bit, values and indices: ties to the lowest index,
-    duplicate points, M not a multiple of the tile, M = 1."""
+    """Bit for bit, values and indices, one way and both ways in one
+    launch: ties to the lowest index, duplicate points, M not a multiple
+    of the tile, M = 1, N = 1, N != M either way."""
     a, r = _nn_inputs(gen, dev, b, n, m)
     before = tcham.KERNEL.launches
     got = tcham.nn_one_way(a, r)
     assert tcham.KERNEL.launches == before + 1
     want = tcham.nn_one_way_plain(a, r)
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    both = tcham.nn_both_ways(a, r)
+    assert tcham.KERNEL.launches == before + 2
+    want += tcham.nn_one_way_plain(r, a)
+    assert all(torch.equal(g, w) for g, w in zip(both, want))
     x = torch.randn((b, n, 3), generator=gen, device=dev)
     y = torch.randn((b, m, 3), generator=gen, device=dev)
     got, want = tcham.nn_one_way(x, y), tcham.nn_one_way_plain(x, y)
     assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    want += tcham.nn_one_way_plain(y, x)
+    assert all(torch.equal(g, w)
+               for g, w in zip(tcham.nn_both_ways(x, y), want))
+
+
+@pytest.mark.parametrize("cluster", range(1, tcham.MAX_CLUSTER + 1))
+@pytest.mark.parametrize("threads", [32, 96, 128])
+def test_nn_kernel_splits_ties_across_slices(dev, gen, threads, cluster):
+    """Every layout the kernel takes, forced: duplicate candidates on
+    both sides of every slice boundary (the lower slice must win the
+    tie), empty slices (M < cluster and M = 1), every candidate equal,
+    and every distance +inf (index 0)."""
+    plan = tcham.ChamferPlan(threads, cluster, tcham.STAGE * threads)
+
+    def check(a, r):
+        got = tcham._launch(a, r, True, plan)
+        want = (*tcham.nn_one_way_plain(a, r), *tcham.nn_one_way_plain(r, a))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    a, r = _nn_inputs(gen, dev, 2, 700, 2000)
+    for lo, _ in tcham.chamfer_slices(2000, cluster)[1:]:
+        r[:, lo] = r[:, lo - 1]
+        a[:, lo % 700] = r[:, lo]
+    check(a, r)
+    check(a, r[:, :5].contiguous())
+    check(a, r[:, :1].contiguous())
+    check(a, r[:, :1].expand(2, 900, 3).contiguous())
+    far = torch.full((2, 300, 3), 1e20, device=dev)
+    check(far, -far[:, :40].contiguous())
+
+
+def test_chamfer_plan_fits_the_card(dev):
+    """The plan on the card's own occupancy: at the train shape both ways
+    every cluster of a split candidate axis fits at once; at 80k, where
+    none of 2 or more would, clusters still pack the SMs as fully as
+    single blocks."""
+    active = tcham.active_clusters(dev.index)
+    assert active(128, 1) >= \
+        torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = tcham.chamfer_plan(16, 624, 624, active)
+    assert plan.cluster > 1
+    assert 2 * 16 * -(-624 // plan.threads) <= active(plan.threads,
+                                                      plan.cluster)
+    plan = tcham.chamfer_plan(1, 80000, 80000, active)
+    assert plan.cluster > 1
+    assert plan.cluster * active(plan.threads, plan.cluster) >= \
+        active(plan.threads, 1)
+
+
+def test_nn_distance_launches_once_and_repeats_bitwise(dev, gen):
+    """One nn_distance call is one launch, at the train shape; three runs
+    on the same inputs give bitwise equal outputs."""
+    a, r = _nn_inputs(gen, dev, 16, 624, 624)
+    before = tcham.KERNEL.launches
+    runs = [tcham.nn_distance(a, r)]
+    assert tcham.KERNEL.launches == before + 1
+    runs += [tcham.nn_distance(a, r) for _ in range(2)]
+    assert all(torch.equal(x, y) for run in runs[1:]
+               for x, y in zip(run, runs[0]))
 
 
 def test_nn_kernel_rejects_what_it_does_not_take(dev):
     a = torch.zeros(2, 8, 3, device=dev)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        tcham.nn_one_way(a, torch.zeros(2, 8, 3))
-    with pytest.raises(ValueError, match="float32"):
-        tcham.nn_one_way(a, a.double())
-    with pytest.raises(ValueError, match="contiguous"):
-        tcham.nn_one_way(a, torch.zeros(2, 3, 8, device=dev).transpose(1, 2))
-    with pytest.raises(ValueError, match="need a"):
-        tcham.nn_one_way(a, torch.zeros(3, 8, 3, device=dev))
-    with pytest.raises(ValueError, match="need a"):
-        tcham.nn_one_way(a, torch.zeros(2, 0, 3, device=dev))
+    for fn in (tcham.nn_one_way, tcham.nn_both_ways):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(a, torch.zeros(2, 8, 3))
+        with pytest.raises(ValueError, match="float32"):
+            fn(a, a.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(a, torch.zeros(2, 3, 8, device=dev).transpose(1, 2))
+        with pytest.raises(ValueError, match="need a"):
+            fn(a, torch.zeros(3, 8, 3, device=dev))
+        with pytest.raises(ValueError, match="need a"):
+            fn(a, torch.zeros(2, 0, 3, device=dev))
+    for plan in ((48, 1, 4 * 48), (512, 1, 2048), (128, 9, 512),
+                 (128, 0, 512), (0, 1, 0), (128, 2, 64)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tcham._launch(a, a, True, tcham.ChamferPlan(*plan))
 
 
 def test_nn_distance_backward_on_gpu_matches_cpu(dev, gen):

@@ -466,6 +466,109 @@ def test_nn_one_way_plain_matches_pallas(rng, b, n, m):
     assert torch.equal(kd, gd) and torch.equal(ki, gi)
 
 
+@pytest.mark.parametrize("b,n,m", [(16, 624, 624), (2, 300, 2500)],
+                         ids=["train", "n-below-m"])
+def test_nn_both_ways_matches_pallas(rng, b, n, m):
+    """nn_both_ways on CPU tensors against nn_one_way_pallas in interpret
+    mode, in both directions, on tie-heavy data: indices exact, values to
+    1e-7 relative."""
+    a, r = _nn_tie_inputs(rng, b, n, m)
+    got = tchamfer.nn_both_ways(t(a), t(r))
+    for (x, y), (gd, gi) in (((a, r), got[:2]), ((r, a), got[2:])):
+        with interpret(jcp):
+            wd, wi = jcp.nn_one_way_pallas(jnp.asarray(x), jnp.asarray(y))
+        assert gi.dtype == torch.int32
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-7)
+
+
+#: clusters of 1-8 blocks an H100 SXM (132 SMs) holds at once, the same
+#: for blocks of 32 to 128 threads, as ``chip_smoke.py`` phase 3 prints
+#: them: a cluster's blocks share a GPC, so from 3 blocks up fewer than
+#: 132 SMs' worth fit
+_H100_ACTIVE = (1056, 528, 327, 248, 193, 163, 139, 124)
+
+
+def _h100_active(threads, cluster):
+    assert threads % 32 == 0 and 32 <= threads <= 128
+    return _H100_ACTIVE[cluster - 1]
+
+
+@pytest.mark.parametrize("b,n,m,both,want", [
+    (16, 624, 624, True, (128, 6, 512)),
+    (16, 624, 624, False, (128, 8, 512)),
+    (1, 80000, 80000, True, (128, 2, 512)),
+    (1, 80000, 80000, False, (128, 2, 512)),
+    (3, 129, 1, True, (96, 1, 384)),
+    (3, 1, 700, True, (128, 1, 512)),
+    (3, 1, 700, False, (32, 8, 128)),
+    (1, 80000, 1, True, (128, 1, 512)),
+    (8, 80000, 80000, True, (128, 2, 512)),
+], ids=["train", "train-one-way", "80k", "80k-one-way", "one-candidate",
+        "one-query", "one-query-one-way", "80k-one-candidate",
+        "above-one-wave"])
+def test_chamfer_plan(b, n, m, both, want):
+    """The Chamfer kernel's layout on an H100 at the train shape, at 80k x
+    80k, at M = 1, at N = 1 and where the query tiles alone overflow the
+    card: the queries of the longest cloud (a's alone, one way) in whole
+    warps of as few tiles as blocks of 128 threads hold; a cluster of at
+    most 8 blocks, the largest of which the card holds every cluster at
+    once, or where none of 2 or more fits, the largest that packs the SMs
+    as fully as single blocks; its slices cover each direction's
+    candidates exactly once."""
+    plan = tchamfer.chamfer_plan(b, n, m, _h100_active, both)
+    assert tuple(plan) == want
+    assert 1 <= plan.cluster <= tchamfer.MAX_CLUSTER
+    assert plan.threads % 32 == 0 and plan.threads <= tchamfer.MAX_THREADS
+    assert plan.tile == tchamfer.STAGE * plan.threads
+    longest = max(n, m) if both else n
+    tiles = -(-longest // tchamfer.MAX_THREADS)
+    assert -(-longest // plan.threads) == tiles
+    assert longest > (plan.threads - 32) * tiles
+    clusters = b * (-(-n // plan.threads)
+                    + (-(-m // plan.threads) if both else 0))
+    one_wave = clusters <= _h100_active(plan.threads, plan.cluster)
+    packed = (plan.cluster * _h100_active(plan.threads, plan.cluster)
+              == _H100_ACTIVE[0])
+    assert plan.cluster == 1 or one_wave or (
+        packed and clusters > _H100_ACTIVE[1])
+    for count in (n, m):
+        covered = [j for lo, hi in tchamfer.chamfer_slices(
+            count, plan.cluster) for j in range(lo, hi)]
+        assert covered == list(range(count))
+
+
+@pytest.mark.parametrize("b,n,m", [
+    (0, 5, 5), (1, 0, 5), (1, 5, 0), (1, 2**31, 5)],
+    ids=["no-cloud", "no-query", "no-candidate", "n-over-int32"])
+def test_chamfer_plan_rejects_bad_calls(b, n, m):
+    with pytest.raises(ValueError, match="chamfer: "):
+        tchamfer.chamfer_plan(b, n, m, _h100_active)
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_chamfer_split_merges_to_the_unsplit_result(rng, cluster):
+    """The kernel's split of the candidate axis, modelled on the CPU: the
+    plain version on each slice of a cluster, merged in slice order as the
+    kernel merges (the smaller distance wins, the lower slice on equal
+    distances), equals the unsplit result bit for bit on tie-heavy data,
+    with duplicates straddling the slice boundaries."""
+    a, r = _nn_tie_inputs(rng, 2, 300, 700)
+    for lo, _ in tchamfer.chamfer_slices(700, cluster)[1:]:
+        r[:, lo] = r[:, lo - 1]
+    want = tchamfer.nn_one_way_plain(t(a), t(r))
+    best = torch.full(want[0].shape, float("inf"))
+    best_i = torch.zeros(want[1].shape, dtype=torch.int32)
+    for lo, hi in tchamfer.chamfer_slices(700, cluster):
+        if lo == hi:
+            continue
+        d, i = tchamfer.nn_one_way_plain(t(a), t(r[:, lo:hi]))
+        take = d < best
+        best = torch.where(take, d, best)
+        best_i = torch.where(take, i + lo, best_i)
+    assert torch.equal(best, want[0]) and torch.equal(best_i, want[1])
+
+
 def test_nn_one_way_plain_chunks_rows(rng, monkeypatch):
     """Row chunks of the plain version (1 row and 7 rows at a time) give
     the unchunked result."""
