@@ -111,15 +111,54 @@ no result line:
       ``torch.profiler``: device time per step by kind of kernel, the
       device's idle share of the unprofiled step, the top kernels.
 
+6. Training from a file, on the card, from the repo's own files:
+
+   a. Data: the port's ``write_synthetic_h5`` writes 4 shapes at 5000 to
+      80,000 points as ``.npz`` (the card's machine has no h5py);
+      ``load_h5_data`` must give the input (4, 5000, 3) and the labels of
+      ratios 2-16; a ``DeviceDataset`` on the card and one on the CPU cut
+      one batch a ratio from the same draws: at least 99.9% of the card's
+      points within 1e-6 of the CPU's (a kNN boundary may flip under
+      rounding).
+   b. The loop at full width (``train.train_loop``, 16 x 312 patches, the
+      net of ``NET``), resumed from ``WEIGHTS`` with its Adam state: the
+      restored state written back equals the file bit for bit; then 20
+      steps past step 120000 with stages of 14000 steps (stage 4, ratios
+      2-16 combined, threshold on), ``log_steps`` 5: the ratios drawn
+      cover 2-16, every step launches select, interlevel once a level past
+      the first and the Chamfer kernel once, every loss is finite,
+      ``error_log`` has one key a ratio drawn, ``log_fn`` gets the
+      prediction, and ``torch.cuda.set_sync_debug_mode`` counts no host
+      sync on a step that does not log.  Then 2 steps of a fresh net at
+      ratio 2 (stage 0) on the card and on the CPU with the same
+      step-keyed draws, the CPU fed the card's batches: losses within
+      1e-5 (relative), each parameter within 0.1 (relative L2), and the
+      CPU's own batches holding 99.9% of the card's points.  Then the
+      warm ms/step of the loop at ratio 16 (stages of 16000 steps: ratio
+      16 only, threshold off, as in 5c; default ``log_steps``) beside
+      5c's bare step, and, over 5 profiled steps, the device's idle
+      share of a loop step.
+   c. Resume on the card: 3 steps, ``save_train_checkpoint``, 3 more from
+      the file, against 6 straight steps; the largest parameter
+      difference must be at most twice the largest between two of three
+      straight runs (the backward's atomic sums round in any order).
+   d. The command line: ``cli.main(["--phase", "train", ...])``, one
+      epoch of 300 steps of batch 1 crossing curriculum stages 0-4
+      (``--stage_steps 40``), must write ``model_1.npz``; ``--phase test``
+      with it must upsample the fixture's shape to 80,000 finite points,
+      and the same weights saved by ``save_pth`` must give that output bit
+      for bit through ``--ckpt ...pth``.
+
 The last two lines of standard output are one JSON object per kernel
-(launches on the checked runs of phases 4b, 4c and 5b, error, times,
-bound) and ``{"ok": true, "device": {...}}``.
+(launches on the checked runs of phases 4b, 4c, 5b, 6b and 6d, by path,
+error, times, bound) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -194,6 +233,25 @@ PIN_GRAD_BAND = 5e-3
 PIN_TENSOR_BAND = 4e-2
 DECISION_BAND = 0.999
 TRAIN_BATCH, TRAIN_POINTS, TRAIN_LR = 16, 312, 5e-4
+#: phase 6: the training file (shapes, resolutions) and how far a batch
+#: cut on the card may lie from the CPU's (max abs, per point)
+DATA_SHAPES, DATA_RESOLUTIONS = 4, (5000, 10000, 20000, 40000, 80000)
+DATA_BAND = 1e-6
+#: the loop resumed from WEIGHTS (step 120000): steps and log cadence;
+#: with stages of 14000 steps step 120000 is stage 4 at progress 0.79
+#: (ratios 2-16 combined, threshold on), with 16000 at 0.25 (ratio 16
+#: only, threshold off: phase 5c's step)
+LOOP_STEPS, LOOP_LOG_STEPS = 20, 5
+LOOP_STAGE_STEPS, TIMING_STAGE_STEPS = 14000, 16000
+LOOP_WARM, LOOP_TIMED, LOOP_PROFILED = 2, 10, 5
+#: ratio-2 steps of a fresh net, card against CPU; steps before and after
+#: the checkpoint of the resume check; stage length of the command line's
+#: one epoch (300 steps of batch 1 cross stages 0-4)
+FRESH_STEPS, RESUME_STEPS, CLI_STAGE_STEPS = 2, 3, 40
+#: straight runs of phase 6c's control: two read the resumed run's gap at
+#: 1.06x and 1.74x their difference on an H100, so one pair alone would
+#: let chance decide
+RESUME_CONTROL_RUNS = 3
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1181,21 +1239,12 @@ def union_us(intervals) -> float:
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def profile_steps(step, steps: int, step_ms: float, card: str,
-                  what: str = "train steps") -> None:
-    """``steps`` calls of ``step`` (``what`` names them) under
-    ``torch.profiler``: device time per step by kind of kernel, the device-busy time (the union of all
-    device intervals), its idle share against ``step_ms`` (the unprofiled
-    step) and the ten kernels with the most device time."""
-    import torch
+def device_time(prof) -> tuple:
+    """``(intervals, by_kind, by_name)`` of the device work a finished
+    ``torch.profiler`` run recorded: every op's ``(start, end)`` in µs,
+    ``{kind: [ops, µs]}`` and ``{kernel name: µs}``; raises where it
+    recorded none."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
     by_kind = defaultdict(lambda: [0, 0.0])
     by_name = defaultdict(float)
     intervals = []
@@ -1210,6 +1259,24 @@ def profile_steps(step, steps: int, step_ms: float, card: str,
         by_name[ev.name] += e - s
     if not intervals:
         raise RuntimeError("the profiler recorded no device time")
+    return intervals, by_kind, by_name
+
+
+def profile_steps(step, steps: int, step_ms: float, card: str,
+                  what: str = "train steps") -> None:
+    """``steps`` calls of ``step`` (``what`` names them) under
+    ``torch.profiler``: device time per step by kind of kernel, the device-busy time (the union of all
+    device intervals), its idle share against ``step_ms`` (the unprofiled
+    step) and the ten kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    intervals, by_kind, by_name = device_time(prof)
     busy_ms = union_us(intervals) / 1e3 / steps
     print(f"profile, {steps} {what}: device busy {busy_ms:.3f} ms/step, "
           f"{len(intervals) / steps:.0f} device ops/step, "
@@ -1226,10 +1293,11 @@ def profile_steps(step, steps: int, step_ms: float, card: str,
 
 
 def train_checks(fx, tfx, card: str, kernels: dict,
-                 profile: int = 0) -> dict:
+                 profile: int = 0) -> tuple:
     """Phase 5: returns the launch count of each kernel in the five
-    checked Adam steps.  With ``profile`` > 0, that many more steps run
-    under ``torch.profiler`` after the timed ones."""
+    checked Adam steps, and the warm ms/step of phase 5c.  With
+    ``profile`` > 0, that many more steps run under ``torch.profiler``
+    after the timed ones."""
     import torch
     from threepu_torch.models import load_net
     from threepu_torch.train import make_optimizer, train_step
@@ -1316,7 +1384,417 @@ def train_checks(fx, tfx, card: str, kernels: dict,
           f"{[round(t, 3) for t in times]}) [{card}]", flush=True)
     if profile:
         profile_steps(step, profile, step_ms, card)
+    return launches, step_ms
+
+
+# ------------------------------------------------------------ phase 6
+def data_file(tmp: str) -> str:
+    """Phase 6a's training file: the port's synthetic shapes as ``.npz``
+    (the card's machine has no h5py)."""
+    from threepu_torch.data.synthetic import write_synthetic_h5
+    name = "train_" + "_".join(f"poisson_{r}" for r in DATA_RESOLUTIONS)
+    return write_synthetic_h5(tmp, n_shapes=DATA_SHAPES, seed=SEED,
+                              resolutions=DATA_RESOLUTIONS,
+                              filename=name + ".npz")
+
+
+def check_data(path: str, dev, card: str) -> None:
+    """Phase 6a: the file loads with the expected resolutions, and one
+    batch a ratio, cut on the card, holds the points the same draws cut on
+    the CPU."""
+    from threepu_torch.data import DeviceDataset, load_h5_data, step_generator
+    from threepu_torch.ops.chamfer import nn_one_way
+
+    n_in = DATA_RESOLUTIONS[0]
+    data, labels, _ = load_h5_data(path, n_in, 16, 2)
+    got = {r: v.shape for r, v in labels.items()}
+    want = {2 ** i: (DATA_SHAPES, n_in * 2 ** i, 3) for i in range(1, 5)}
+    if data.shape != (DATA_SHAPES, n_in, 3) or got != want:
+        raise AssertionError(f"load_h5_data: input {data.shape}, labels {got}")
+    card_ds, cpu_ds = (DeviceDataset(path, n_in, TRAIN_POINTS, TRAIN_BATCH,
+                                     device=d) for d in (dev, "cpu"))
+    for ratio in (2, 4, 8, 16):
+        draws = cpu_ds.draws(step_generator(SEED, ratio))
+        on_card = card_ds.sample(ratio, ratio, **draws)
+        on_cpu = cpu_ds.sample(ratio, ratio, **draws)
+        shares, errs = [], []
+        for got, want in zip(on_card, on_cpu):
+            want = want.to(dev)
+            d, _ = nn_one_way(got.contiguous(), want.contiguous())
+            shares.append(float((d <= DATA_BAND ** 2).double().mean()))
+            errs.append(float((got - want).abs().max()))
+        print(f"train data ratio {ratio}, shape {ratio % DATA_SHAPES}: "
+              f"{tuple(on_card[0].shape)} / {tuple(on_card[1].shape)}, points "
+              f"within {DATA_BAND} of the CPU's batch: input {shares[0]:.6f}, "
+              f"gt {shares[1]:.6f}; max abs diff in order {errs} [{card}]",
+              flush=True)
+        if not min(shares) >= BATCH_BAND:
+            raise AssertionError(f"ratio {ratio}: the card's batch is not "
+                                 "the CPU's")
+
+
+@contextlib.contextmanager
+def watched_steps(kernels: dict, syncs: bool = False):
+    """Wraps the loop's ``train_step``; yields the list of its calls, each
+    ``{"ratio", "loss" (on the device), "launches" (per kernel), "t0"}``.
+    With ``syncs``, each call also counts the host syncs that
+    ``torch.cuda.set_sync_debug_mode`` reports from its start to the next
+    call's (the step, then the loop's bookkeeping and the batch it
+    issues)."""
+    import warnings
+    import torch
+    import threepu_torch.train.loop as loop_mod
+    calls = []
+    step_fn = loop_mod.train_step
+
+    def watched(net, opt, inp, gt, ratio, **kw):
+        calls.append(dict(ratio=ratio, syncs=0, t0=time.perf_counter()))
+        start = {n: k.launches for n, k in kernels.items()}
+        out = step_fn(net, opt, inp, gt, ratio, **kw)
+        calls[-1].update(loss=out[0] if kw.get("with_pred") else out,
+                         launches={n: k.launches - start[n]
+                                   for n, k in kernels.items()})
+        return out
+
+    def on_warning(message, *args, **kwargs):
+        if "synchroniz" in str(message) and calls:
+            calls[-1]["syncs"] += 1
+
+    with warnings.catch_warnings(), \
+            mock.patch.object(loop_mod, "train_step", watched):
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        if syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield calls
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def loop_config(path: str, tmp: str, **kw):
+    """Phase 6's ``TrainConfig``: the training file, 16 x 312 patches of
+    5000-point shapes, the net of ``NET``, resumed from ``WEIGHTS`` with
+    the curriculum at ratios 2-16 combined, threshold on."""
+    from threepu_torch.train import TrainConfig
+    base = dict(h5_data=path, num_shape_point=DATA_RESOLUTIONS[0],
+                num_point=TRAIN_POINTS, batch_size=TRAIN_BATCH,
+                up_ratio=NET["max_up_ratio"], step_ratio=NET["step_ratio"],
+                knn=NET["knn"], growth_rate=NET["growth_rate"],
+                dense_n=NET["dense_n"], fm_knn=NET["fm_knn"],
+                max_num_point=NET["max_num_point"], lr_init=TRAIN_LR,
+                stage_steps=LOOP_STAGE_STEPS, log_steps=LOOP_LOG_STEPS,
+                ckpt=WEIGHTS, model_dir=os.path.join(tmp, "loop"))
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def check_restore(cfg, start: int, tmp: str, card: str) -> None:
+    """Phase 6b, first: the loop's state restored from ``WEIGHTS``, written
+    back by ``save_train_checkpoint``, equals the file: the parameters,
+    every Adam leaf and the fingerprint, bit for bit and dtype for
+    dtype."""
+    from threepu_torch.io import save_train_checkpoint
+    from threepu_torch.train import train_loop
+    state, _ = train_loop(cfg, max_steps=start)
+    back = os.path.join(tmp, "restored.npz")
+    save_train_checkpoint(back, state.net, state.opt, step=state.step)
+    with np.load(WEIGHTS) as a, np.load(back) as b:
+        bad = sorted(set(a.files) ^ set(b.files)) + [
+            k for k in a.files if k in b.files and not (
+                a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]))]
+        n_opt = sum(k.startswith("opt/") for k in a.files)
+    print(f"loop resumed {os.path.basename(WEIGHTS)} at step {state.step}: "
+          f"its parameters and {n_opt} Adam leaves written back "
+          f"{'differ at ' + str(bad[:5]) if bad else 'bit for bit'} [{card}]",
+          flush=True)
+    if bad or state.step != start:
+        raise AssertionError("the loop did not restore the file's state")
+
+
+def check_loop(cfg, start: int, card: str, kernels: dict) -> dict:
+    """Phase 6b: ``LOOP_STEPS`` steps of the loop resumed from ``WEIGHTS``:
+    ratios 2 to 16 drawn, the kernels launched in every step (the Chamfer
+    kernel once, interlevel once a level past the first), finite losses,
+    one running mean a ratio, and no host sync on a step that does not
+    log.  Returns the launch count of each kernel in the run."""
+    import torch
+    from threepu_torch.train import train_loop
+    logged = []
+
+    def log_fn(step, ratio, loss, state, batch, pred=None, gt_out=None,
+               error=None):
+        logged.append((step, ratio, None if pred is None else pred.shape,
+                       error))
+
+    for k in kernels.values():
+        k.launches = 0
+    with watched_steps(kernels, syncs=True) as calls:
+        state, error_log = train_loop(cfg, max_steps=start + LOOP_STEPS,
+                                      log_fn=log_fn)
+    launches = checked_launches(kernels, ("select", "interlevel", "chamfer"),
+                                "training-loop")
+    losses = torch.stack([c["loss"] for c in calls]).cpu().numpy()
+    ratios = [c["ratio"] for c in calls]
+    log_at = [(start + i + 1) % cfg.log_steps == 0 or i == len(calls) - 1
+              for i in range(len(calls))]
+    syncs = [c["syncs"] for c in calls]
+    print(f"loop, {len(calls)} steps from step {start}: ratios {ratios}; "
+          f"losses {losses.tolist()}; error_log "
+          f"{dict(sorted(error_log.items()))}; log_fn at "
+          f"{[(s, r) for s, r, _, _ in logged]}; host syncs a step {syncs} "
+          f"(log steps {[i for i, on in enumerate(log_at) if on]}) [{card}]",
+          flush=True)
+    if len(calls) != LOOP_STEPS or state.step != start + LOOP_STEPS:
+        raise AssertionError(f"the loop ran {len(calls)} steps")
+    if set(ratios) != {2, 4, 8, 16}:
+        raise AssertionError(f"the loop drew the ratios {sorted(set(ratios))}")
+    for c in calls:
+        levels = int(np.log2(c["ratio"]))
+        got = c["launches"]
+        if (got["select"] <= 0 or got["chamfer"] != 1
+                or got["interlevel"] != levels - 1):
+            raise AssertionError(f"a ratio-{c['ratio']} loop step launched "
+                                 f"{got}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("a loss of the loop is not finite")
+    if set(error_log) != {f"cd_loss_x{r}" for r in set(ratios)}:
+        raise AssertionError(f"error_log keys {sorted(error_log)}")
+    if len(logged) != LOOP_STEPS // cfg.log_steps or \
+            any(shape is None or not np.isfinite(err)
+                for _, _, shape, err in logged):
+        raise AssertionError(f"log_fn calls {logged}")
+    off_log = [n for n, on in zip(syncs, log_at) if not on]
+    if any(off_log):
+        raise AssertionError(f"{sum(off_log)} host syncs on steps that do "
+                             "not log")
     return launches
+
+
+def fresh_steps(cfg, device, steps: int, feed=None) -> tuple:
+    """``steps`` steps of the loop from a fresh net on ``device``: the
+    final state and, per step, ``(input, gt, loss)`` of the batch the
+    loop cut; with ``feed`` (such a list), each step trains on ``feed``'s
+    batch instead."""
+    import threepu_torch.train.loop as loop_mod
+    from threepu_torch.train import train_loop
+    rec = []
+    step_fn = loop_mod.train_step
+
+    def fed(net, opt, inp, gt, ratio, **kw):
+        own = (inp, gt)
+        if feed is not None:
+            inp, gt = (t.to(inp.device) for t in feed[len(rec)][:2])
+        loss = step_fn(net, opt, inp, gt, ratio, **kw)
+        rec.append((*own, loss))
+        return loss
+
+    with mock.patch.object(loop_mod, "train_step", fed):
+        state, _ = train_loop(cfg, max_steps=steps, device=device)
+    return state, rec
+
+
+def check_fresh_ratio2(cfg, dev, card: str) -> None:
+    """Phase 6b, ratio 2: ``FRESH_STEPS`` steps of a fresh net (stage 0)
+    on the card and on the CPU with the same step-keyed draws, the CPU
+    fed the card's batches: each loss within ``R2_LOSS_BAND`` (relative),
+    each parameter within ``R2_TENSOR_BAND`` (relative L2); the CPU's own
+    batches hold the card's points (``BATCH_BAND``)."""
+    import torch
+    from threepu_torch.train import train_loop
+    fresh = dataclasses.replace(cfg, ckpt=None)
+    card_state, card_rec = fresh_steps(fresh, dev, FRESH_STEPS)
+    cpu_state, cpu_rec = fresh_steps(fresh, "cpu", FRESH_STEPS, card_rec)
+    init = dict(train_loop(fresh, max_steps=0, device="cpu")[0]
+                .net.named_parameters())
+    loss_errs, shares = [], []
+    for (x, gt, loss), (own_x, own_gt, ref) in zip(card_rec, cpu_rec):
+        loss_errs.append(abs(float(loss) - float(ref)) / float(ref))
+        shares += [coincide(a.to(dev), b) for a, b in ((own_x, x),
+                                                        (own_gt, gt))]
+    def rel(diff: float, ref: torch.Tensor) -> float:
+        ref = float(ref.detach().norm())
+        return diff / ref if ref > 0 else (0.0 if diff == 0 else np.inf)
+
+    cpu = dict(cpu_state.net.named_parameters())
+    p_err, u_err = {}, {}
+    for name, p in card_state.net.named_parameters():
+        diff = float((p.detach().cpu() - cpu[name].detach()).norm())
+        p_err[name] = rel(diff, cpu[name])
+        u_err[name] = rel(diff, cpu[name] - init[name])
+    worst, worst_u = max(p_err, key=p_err.get), max(u_err, key=u_err.get)
+    print(f"fresh net, {FRESH_STEPS} ratio-2 loop steps, card against CPU: "
+          f"losses {[float(r[2]) for r in card_rec]}, rel err {loss_errs}; "
+          f"parameters rel L2 worst {p_err[worst]:.3e} ({worst}); updates "
+          f"rel L2 worst {u_err[worst_u]:.3e} ({worst_u}); the CPU's own "
+          f"batches hold {min(shares):.6f} of the card's points [{card}]",
+          flush=True)
+    if not max(loss_errs) <= R2_LOSS_BAND:
+        raise AssertionError(f"ratio-2 loop loss outside {R2_LOSS_BAND}")
+    if not p_err[worst] <= R2_TENSOR_BAND:
+        raise AssertionError(f"{worst} outside {R2_TENSOR_BAND}")
+    if not min(shares) >= BATCH_BAND:
+        raise AssertionError("the loop's batches on the card and the CPU "
+                             "differ")
+
+
+def time_loop(cfg, start: int, card: str, bare_ms: float) -> None:
+    """Phase 6b, timing: the loop resumed at ratio 16 only, threshold off
+    (as phase 5c's bare step), with the default ``log_steps``: the warm
+    ms/step over ``LOOP_TIMED`` steps after ``LOOP_WARM``, each end read
+    after a device sync, then ``LOOP_PROFILED`` steps under
+    ``torch.profiler``: the device's idle share of a loop step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import threepu_torch.train.loop as loop_mod
+    from threepu_torch.train import TrainConfig, train_loop
+    timed_cfg = dataclasses.replace(cfg, stage_steps=TIMING_STAGE_STEPS,
+                                    log_steps=TrainConfig.log_steps)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks, ratios = [], []
+    step_fn = loop_mod.train_step
+
+    def timed(net, opt, inp, gt, ratio, **kw):
+        if len(ratios) in (LOOP_WARM, LOOP_WARM + LOOP_TIMED):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if len(marks) == 2:
+                prof.start()
+        ratios.append(ratio)
+        return step_fn(net, opt, inp, gt, ratio, **kw)
+
+    with mock.patch.object(loop_mod, "train_step", timed):
+        train_loop(timed_cfg, max_steps=start + LOOP_WARM + LOOP_TIMED
+                   + LOOP_PROFILED)
+    torch.cuda.synchronize()
+    prof.stop()
+    if set(ratios) != {16}:
+        raise AssertionError(f"the timed loop drew ratios {set(ratios)}")
+    step_ms = (marks[1] - marks[0]) * 1e3 / LOOP_TIMED
+    intervals, by_kind, _ = device_time(prof)
+    busy_ms = union_us(intervals) / 1e3 / LOOP_PROFILED
+    print(f"loop ratio 16, batch {TRAIN_BATCH} x {TRAIN_POINTS}: warm "
+          f"{step_ms:.3f} ms/step ({LOOP_TIMED} steps; bare train_step "
+          f"{bare_ms:.3f} ms/step, phase 5c); profiled {LOOP_PROFILED} steps: "
+          f"device busy {busy_ms:.3f} ms/step, "
+          f"{len(intervals) / LOOP_PROFILED:.0f} device ops/step, idle share "
+          f"{1 - busy_ms / step_ms:.4f} of the unprofiled step [{card}]",
+          flush=True)
+
+
+def check_resume(cfg, start: int, tmp: str, card: str) -> None:
+    """Phase 6c: ``RESUME_STEPS`` loop steps, ``save_train_checkpoint``,
+    then ``RESUME_STEPS`` more from the file, against ``2 *
+    RESUME_STEPS`` straight steps: the largest parameter difference no
+    more than twice the largest between two of ``RESUME_CONTROL_RUNS``
+    straight runs (the backward's atomic sums round in any order on the
+    card, and a resumed run is one more such run)."""
+    import itertools
+    from threepu_torch.io import save_train_checkpoint
+    from threepu_torch.train import train_loop
+    end = start + 2 * RESUME_STEPS
+    straight = [train_loop(cfg, max_steps=end)[0]
+                for _ in range(RESUME_CONTROL_RUNS)]
+    half, _ = train_loop(cfg, max_steps=start + RESUME_STEPS)
+    path = os.path.join(tmp, "half.npz")
+    save_train_checkpoint(path, half.net, half.opt, step=half.step)
+    resumed, _ = train_loop(dataclasses.replace(cfg, ckpt=path),
+                            max_steps=end)
+
+    def max_diff(a, b):
+        pb = dict(b.net.named_parameters())
+        return max(float((p - pb[n]).detach().abs().max())
+                   for n, p in a.net.named_parameters())
+
+    pairs = [max_diff(a, b) for a, b in itertools.combinations(straight, 2)]
+    control, gap = max(pairs), max_diff(resumed, straight[0])
+    print(f"resume on the card: {RESUME_STEPS} + {RESUME_STEPS} steps against "
+          f"{2 * RESUME_STEPS} straight: largest parameter difference "
+          f"{gap:.3e}; pairs of straight runs differ by "
+          f"{[f'{d:.3e}' for d in pairs]} [{card}]", flush=True)
+    if resumed.step != end or not gap <= 2 * control:
+        raise AssertionError("the resumed run is outside twice its control")
+
+
+def check_cli_train(path: str, tmp: str, fx, card: str,
+                    kernels: dict) -> dict:
+    """Phase 6d: ``cli.main(["--phase", "train", ...])``, one epoch of 300
+    steps of batch 1 over curriculum stages 0-4, writes ``model_1.npz``;
+    ``--phase test`` with it upsamples the fixture's shape to 80,000
+    points, and the same weights saved as ``.pth`` give that output bit
+    for bit.  Returns the launch count of each kernel in the training
+    run, and in the two ``--phase test`` runs."""
+    from threepu_torch import cli
+    from threepu_torch.io import read_ply, save_pth
+    from threepu_torch.models import load_net
+    log_dir = os.path.join(tmp, "cli")
+    net_flags = ["--num_point", str(TRAIN_POINTS), "--up_ratio",
+                 str(NET["max_up_ratio"]), "--knn", str(NET["knn"]),
+                 "--growth_rate", str(NET["growth_rate"]), "--dense_n",
+                 str(NET["dense_n"]), "--fm_knn", str(NET["fm_knn"])]
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    cli.main(["--phase", "train", "--h5_data", path, "--num_shape_point",
+              str(DATA_RESOLUTIONS[0]), "--batch_size", "1", "--max_epoch",
+              "1", "--stage_steps", str(CLI_STAGE_STEPS), "--log_dir",
+              log_dir, "--id", "smoke"] + net_flags)
+    train_s = time.perf_counter() - t0
+    launches = checked_launches(kernels, ("select", "interlevel", "chamfer"),
+                                "cli --phase train")
+    ckpt = os.path.join(log_dir, "smoke", "model_1.npz")
+    with np.load(ckpt) as f:
+        step = int(f["step"])
+    if step != 300:
+        raise AssertionError(f"model_1.npz holds step {step}, not 300")
+    os.mkdir(os.path.join(tmp, "shapes"))
+    np.savetxt(os.path.join(tmp, "shapes", "shape0.xyz"), fx["input"])
+    pth = save_pth(os.path.join(tmp, "model_1.pth"),
+                   load_net(ckpt, device="cpu", **NET), step=step)
+    outs = {}
+    for k in kernels.values():
+        k.launches = 0
+    for name, weights in (("npz", ckpt), ("pth", pth)):
+        cli.main(["--phase", "test", "--ckpt", weights, "--test_data",
+                  os.path.join(tmp, "shapes", "*.xyz"), "--result_dir",
+                  os.path.join(tmp, f"out_{name}")] + net_flags)
+        outs[name] = read_ply(os.path.join(tmp, f"out_{name}", "shapes",
+                                           "shape0.ply"))
+    test_launches = checked_launches(kernels, ("select", "fps", "interlevel"),
+                                     "cli --phase test, .npz and .pth")
+    n_out = fx["input"].shape[0] * NET["max_up_ratio"]
+    same = np.array_equal(outs["npz"], outs["pth"])
+    print(f"cli --phase train: 300 steps of batch 1, stages 0-4, in "
+          f"{train_s:.1f} s with set-up; model_1.npz at step {step}; "
+          f"--phase test with it: {outs['npz'].shape}, finite "
+          f"{bool(np.isfinite(outs['npz']).all())}; through .pth the same "
+          f"bit for bit: {same} [{card}]", flush=True)
+    if outs["npz"].shape != (n_out, 3) or not np.isfinite(outs["npz"]).all():
+        raise AssertionError("--phase test with the trained checkpoint")
+    if not same:
+        raise AssertionError("the .pth checkpoint upsamples otherwise")
+    return launches, test_launches
+
+
+def file_training(fx, card: str, kernels: dict, bare_ms: float) -> dict:
+    """Phase 6: training from a file (6a-6d); returns the launch count of
+    each kernel on the paths it drives: the loop (6b), the command line's
+    training run and its two test runs (6d)."""
+    import tempfile
+    from threepu_torch.device import require_cuda
+    dev = require_cuda()
+    start = int(np.load(WEIGHTS)["step"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = data_file(tmp)
+        check_data(path, dev, card)
+        cfg = loop_config(path, tmp)
+        check_restore(cfg, start, tmp, card)
+        loop = check_loop(cfg, start, card, kernels)
+        check_fresh_ratio2(cfg, dev, card)
+        time_loop(cfg, start, card, bare_ms)
+        check_resume(cfg, start, tmp, card)
+        cli_train, cli_test = check_cli_train(path, tmp, fx, card, kernels)
+    return {"loop": loop, "cli_train": cli_train, "cli_test": cli_test}
 
 
 def main() -> int:
@@ -1379,12 +1857,18 @@ def main() -> int:
         profile_shapes(net, fx, args.profile_shapes, card)
 
     # 5. training
-    train_launches = train_checks(fx, np.load(TRAIN_FIXTURE), card, kernels,
-                                  args.profile)
+    train_launches, step_ms = train_checks(fx, np.load(TRAIN_FIXTURE), card,
+                                           kernels, args.profile)
+
+    # 6. training from a file
+    file_train = file_training(fx, card, kernels, step_ms)
 
     by_path = {name: {"eval": eval_launches.get(name, 0),
                       "file": file_launches.get(name, 0),
-                      "train": train_launches[name]} for name in kernels}
+                      "train": train_launches[name],
+                      **{path: launches[name]
+                         for path, launches in file_train.items()}}
+               for name in kernels}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=k.source, replaces=k.replaces,
              launches=sum(by_path[name].values()),

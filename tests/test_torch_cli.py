@@ -13,11 +13,14 @@ import pytest
 import torch
 
 from threepu import cli as jcli
+from threepu.io import load_checkpoint, load_opt_state
 from threepu.io import read_ply as jread_ply
-from threepu.io import save_checkpoint
+from threepu.io import save_checkpoint, save_pth
 from threepu.models import Net as JNet
+from threepu.train import model as jmodel
 
 from threepu_torch import cli as tcli
+from threepu_torch.data import synthetic as tsyn
 from threepu_torch.io import read_ply
 from threepu_torch.ops import knn as tknn
 
@@ -167,19 +170,18 @@ def test_cli_no_match_warns_and_writes_nothing(tiny, capsys):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--phase", "train"], SystemExit, "train is not ported"),
     (["--phase", "vis"], SystemExit, "vis is not ported"),
     (["--phase", "bogus"], SystemExit, "unknown phase"),
-    (["--ckpt", "weights.pth"], NotImplementedError, ".pth"),
     (["--knn_method", "approx"], NotImplementedError, "approx"),
     (["--knn_method", "auto"], NotImplementedError, "auto"),
     (["--knn_method", "sort"], NotImplementedError, "sort"),
     (["--ckpt", ""], SystemExit, "--ckpt"),
     (["--num_point", "0", "--num_shape_point", "0"], SystemExit,
      "--num_point"),
-    (["--test_data", ""], SystemExit, "--test_data")],
-    ids=["train", "vis", "bogus", "pth", "approx", "auto", "sort", "no-ckpt",
-         "no-size", "no-data"])
+    (["--test_data", ""], SystemExit, "--test_data"),
+    (["--phase", "train"], SystemExit, "--h5_data")],
+    ids=["vis", "bogus", "approx", "auto", "sort", "no-ckpt", "no-size",
+         "no-data", "train-no-data"])
 def test_cli_raises_on_what_is_not_ported_or_missing(tiny, argv, error, match):
     _, ckpt, pattern = tiny
     base = {"--phase": "test", "--ckpt": ckpt, "--test_data": pattern,
@@ -192,12 +194,14 @@ def test_cli_raises_on_what_is_not_ported_or_missing(tiny, argv, error, match):
 
 def test_cli_runs_on_the_card_by_default(tiny, monkeypatch):
     """With no device named, ``main`` asks for the CUDA device ``--device``
-    (else ``--gpu``) and raises where none is visible."""
-    _, ckpt, pattern = tiny
+    (else ``--gpu``) and raises where none is visible, in both phases."""
+    root, ckpt, pattern = tiny
     argv = ["--phase", "test", "--ckpt", ckpt, "--test_data", pattern] + TINY
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcli.main(["--phase", "train", "--h5_data", train_file(root)] + TINY)
     asked = []
 
     def fake_load_net(weights, device, **cfg):
@@ -212,3 +216,55 @@ def test_cli_runs_on_the_card_by_default(tiny, monkeypatch):
         assert asked[-1][0] == torch.device("cuda", ordinal)
     assert asked[-1][1] == dict(max_up_ratio=4, step_ratio=2, knn=4,
                                 growth_rate=4, dense_n=2, fm_knn=5)
+
+
+def train_file(root) -> str:
+    """A synthetic training file of 2 shapes at 64, 128 and 256 points,
+    as ``.npz``."""
+    return tsyn.write_synthetic_h5(
+        str(root / "data"), n_shapes=2, seed=3, resolutions=(64, 128, 256),
+        filename="train_poisson_64_poisson_128_poisson_256.npz")
+
+
+def test_cli_train_phase_writes_the_epoch_checkpoint(tiny):
+    """``--phase train`` on the CPU at the tiny size: one epoch of 300
+    steps of batch 1 over curriculum stages 0-4 (``--stage_steps 40``)
+    writes ``<log_dir>/<id>/model_1.npz`` at step 300, with the Adam
+    state JAX's ``load_opt_state`` restores, and its weights serve
+    ``--phase test``."""
+    root, _, pattern = tiny
+    log_dir = root / "train_log"
+    tcli.main(["--phase", "train", "--h5_data", train_file(root),
+               "--batch_size", "1", "--max_epoch", "1", "--stage_steps",
+               "40", "--log_dir", str(log_dir), "--id", "smoke"] + TINY,
+              device="cpu")
+    ckpt = log_dir / "smoke" / "model_1.npz"
+    assert sorted(os.listdir(log_dir / "smoke")) == ["model_1.npz"]
+    params, step = load_checkpoint(str(ckpt))
+    assert step == 300
+    tx = jmodel.make_optimizer(5e-4)
+    restored = load_opt_state(str(ckpt), tx.init(params["params"]))
+    assert restored is not None and int(restored[1][0].count) == 300
+    tcli.main(["--phase", "test", "--ckpt", str(ckpt), "--test_data",
+               pattern, "--result_dir", str(root / "trained_out")] + TINY,
+              device="cpu")
+    out = read_ply(str(root / "trained_out" / "shapes" / "shape.ply"))
+    assert out.shape == (256, 3) and np.isfinite(out).all()
+
+
+def test_cli_pth_checkpoint_gives_the_npz_output(tiny):
+    """``--ckpt x.pth`` (written by JAX's ``save_pth`` from the same
+    weights) upsamples the file to the output of ``--ckpt x.npz``, bit for
+    bit on the CPU."""
+    root, ckpt, pattern = tiny
+    params, _ = load_checkpoint(ckpt)
+    pth = save_pth(str(root / "tiny.pth"), params, step=0)
+    outs = []
+    for weights in (ckpt, pth):
+        out_dir = root / ("pth_out" if weights == pth else "npz_out")
+        tcli.main(["--phase", "test", "--ckpt", weights, "--test_data",
+                   pattern, "--result_dir", str(out_dir)] + TINY,
+                  device="cpu")
+        outs.append(read_ply(str(out_dir / "shapes" / "shape.ply")))
+    assert outs[0].shape == (256, 3)
+    assert np.array_equal(outs[0], outs[1])

@@ -2,14 +2,18 @@
 
     python -m threepu_torch.cli --phase test --ckpt weights.npz \\
         --num_point 312 --test_data 'shapes/*.xyz' --result_dir out
+    python -m threepu_torch.cli --phase train --h5_data data/train_*.npz \\
+        --num_shape_point 5000 --num_point 312 --log_dir model --id demo
 
 The flags are the JAX package's, name by name, with the same defaults and
 choices, so a command line of ``python -m threepu.cli`` carries over.
-Only ``--phase test`` is ported: every file matching ``--test_data`` is
-upsampled on the GPU and written to ``<result_dir>/<parent folder>/
-<name>.ply`` beside ``<name>_input.ply``.  What is not ported raises:
-``--phase train`` and ``--phase vis``, a ``.pth`` checkpoint, and every
-``--knn_method`` but ``exact``.
+``--phase test`` upsamples every file matching ``--test_data`` and writes
+``<result_dir>/<parent folder>/<name>.ply`` beside ``<name>_input.ply``;
+``--ckpt`` is a JAX-package ``.npz`` or a reference ``.pth``.  ``--phase
+train`` trains from an ``.hdf5`` or ``.npz`` training file and writes
+``<log_dir>/<id>/model_<epoch>.npz`` (:func:`threepu_torch.train.train_loop`).
+What is not ported raises: ``--phase vis`` and every ``--knn_method`` but
+``exact``.
 
 The entry point runs on the CUDA device ``--device`` (or ``--gpu``) and
 raises where none is visible.  A Python caller may name another device:
@@ -29,10 +33,12 @@ from typing import Optional, Sequence, Union
 import torch
 
 from threepu_torch.inference import upsample_shape
-from threepu_torch.io import load, save_ply
+from threepu_torch.io import import_pth, load, save_ply
 from threepu_torch.models import Net, load_net
 from threepu_torch.ops import knn
+from threepu_torch.train import TrainConfig, train_loop
 from threepu_torch.utils import logger
+from threepu_torch.vis import VisdomMonitor
 
 Device = Optional[Union[str, torch.device]]
 
@@ -40,7 +46,7 @@ Device = Optional[Union[str, torch.device]]
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("threepu_torch")
     p.add_argument("--phase", default="test",
-                   help="test (train and vis are not ported yet) "
+                   help="train or test (vis is not ported yet) "
                         "[default: test]")
     p.add_argument("--device", type=int, default=0,
                    help="CUDA device ordinal (reference: --gpu)")
@@ -54,8 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--root_dir", default="../",
                    help="(unused, reference compatibility)")
     p.add_argument("--result_dir", help="result directory")
-    p.add_argument("--ckpt", help="model to restore from (a JAX-package "
-                                  ".npz checkpoint)")
+    p.add_argument("--ckpt", help="model to restore from (.npz or .pth)")
     p.add_argument("--num_point", type=int, help="patch point number")
     p.add_argument("--num_shape_point", type=int,
                    help="number of points per shape")
@@ -63,7 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="upsampling ratio [default: 16]")
     p.add_argument("--max_epoch", type=int, default=160)
     p.add_argument("--batch_size", type=int, default=16)
-    p.add_argument("--h5_data", help="h5 file for training")
+    p.add_argument("--h5_data", help="training file (.hdf5, or .npz with "
+                                     "the same datasets)")
     p.add_argument("--record_data",
                    help="(unused, reference compatibility)")
     p.add_argument("--test_data", help="test data glob path")
@@ -136,19 +142,26 @@ def result_path_for(flags) -> str:
         "_".join(parts))
 
 
-def _build_net(flags, device: Device = None) -> Net:
-    """The flags' ``Net`` with ``--ckpt`` loaded strictly, on ``device``
-    (``None``: the CUDA device ``--device``, else ``--gpu``)."""
-    if flags.ckpt.endswith(".pth"):
-        raise NotImplementedError(
-            f"--ckpt {flags.ckpt}: importing a reference .pth checkpoint is "
-            "not ported yet; pass a JAX-package .npz checkpoint")
+def _device(flags, device: Device) -> Device:
+    """``device``, else the CUDA device ``--device`` (else ``--gpu``)."""
     if device is None:
-        device = torch.device("cuda", flags.device or flags.gpu)
-    net = load_net(flags.ckpt, device, max_up_ratio=flags.up_ratio,
-                   step_ratio=flags.step_ratio, knn=flags.knn,
-                   growth_rate=flags.growth_rate, dense_n=flags.dense_n,
-                   fm_knn=flags.fm_knn)
+        return torch.device("cuda", flags.device or flags.gpu)
+    return device
+
+
+def _build_net(flags, device: Device = None) -> Net:
+    """The flags' ``Net`` with ``--ckpt`` (``.npz``, or ``.pth`` through
+    :func:`import_pth`) loaded strictly, on ``device`` (``None``: the CUDA
+    device ``--device``, else ``--gpu``)."""
+    cfg = dict(max_up_ratio=flags.up_ratio, step_ratio=flags.step_ratio,
+               knn=flags.knn, growth_rate=flags.growth_rate,
+               dense_n=flags.dense_n, fm_knn=flags.fm_knn)
+    if flags.ckpt.endswith(".pth"):
+        net = load_net(None, _device(flags, device), **cfg)
+        state, _ = import_pth(flags.ckpt, net)
+        net.load_state_dict(state, strict=True)
+    else:
+        net = load_net(flags.ckpt, _device(flags, device), **cfg)
     logger.info(f"restored {flags.ckpt}")
     return net.eval()
 
@@ -229,24 +242,50 @@ def run_test(flags, result_dir: str, device: Device = None) -> None:
             w.result()
 
 
+def run_train(flags, device: Device = None) -> None:
+    """Train from ``--h5_data`` into ``<log_dir>/<id>``, the training
+    monitor on visdom where it is installed."""
+    if flags.h5_data is None or flags.num_shape_point is None:
+        raise SystemExit("--h5_data and --num_shape_point are required for "
+                         "train")
+    cfg = TrainConfig(
+        h5_data=flags.h5_data, num_shape_point=flags.num_shape_point,
+        num_point=flags.num_point, batch_size=flags.batch_size,
+        up_ratio=flags.up_ratio, step_ratio=flags.step_ratio,
+        knn=flags.knn, growth_rate=flags.growth_rate,
+        dense_n=flags.dense_n, fm_knn=flags.fm_knn,
+        lr_init=flags.lr_init, max_epoch=flags.max_epoch,
+        stage_steps=flags.stage_steps, cd_threshold=flags.cd_threshold,
+        jitter=flags.jitter, jitter_sigma=flags.jitter_sigma,
+        jitter_max=flags.jitter_max, drop_out=flags.drop_out,
+        ckpt=flags.ckpt, model_dir=os.path.join(flags.log_dir, flags.id),
+        weight_mode=flags.loss_weight_mode)
+    monitor = VisdomMonitor(env=flags.id)
+    train_loop(cfg, log_fn=monitor.log_train_step,
+               device=_device(flags, device))
+
+
 def main(argv: Optional[Sequence[str]] = None, device: Device = None) -> None:
     """Parse ``argv`` (default: the process's arguments) and run the phase
     on the GPU, or on ``device`` when a Python caller names one."""
     flags = build_parser().parse_args(argv)
-    if flags.phase in ("train", "vis"):
-        raise SystemExit(f"--phase {flags.phase} is not ported yet; "
-                         "threepu_torch.cli runs --phase test")
-    if flags.phase != "test":
+    if flags.phase == "vis":
+        raise SystemExit("--phase vis is not ported yet; threepu_torch.cli "
+                         "runs --phase train and --phase test")
+    if flags.phase not in ("train", "test"):
         raise SystemExit(f"unknown phase {flags.phase!r}")
     if flags.knn_method != "exact":
         raise NotImplementedError(
             f"--knn_method {flags.knn_method} is not ported; only 'exact' is")
-    if flags.ckpt is None:
+    if flags.phase == "test" and flags.ckpt is None:
         raise SystemExit("--ckpt is required for test")
     select_kernel = knn.EXACT_SELECT_KERNEL
     knn.set_exact_select_kernel(flags.select_kernel == "on")
     try:
-        run_test(flags, result_path_for(flags), device)
+        if flags.phase == "train":
+            run_train(flags, device)
+        else:
+            run_test(flags, result_path_for(flags), device)
     finally:
         knn.set_exact_select_kernel(select_kernel)
 

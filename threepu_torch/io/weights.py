@@ -11,12 +11,15 @@ numpy (the JAX package does not import without JAX):
 - ``level_1/up_layer1/conv`` -> ``levels.level_1.up_layer.up_layer1.conv``;
 - a dense ``kernel (in, out)`` -> ``weight (out, in, 1)`` for the
   ``*_prep`` layers (``Conv1d``) and ``(out, in, 1, 1)`` elsewhere.
+
+:func:`jax_path` and :func:`jax_value` map back, for the checkpoints the
+port writes in the JAX package's format (:mod:`threepu_torch.io.checkpoint`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +52,44 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def torch_param(path: str, leaf: str, value) -> tuple:
+    """One JAX leaf ``<path>/<leaf>`` -> ``(state-dict name, float32
+    tensor)``: a kernel ``(in, out)`` becomes a weight ``(out, in, 1)``
+    (``*_prep``) or ``(out, in, 1, 1)``."""
+    name = reference_name(path)
+    value = np.asarray(value, np.float32)
+    if leaf == "kernel":
+        w = value.T                                          # (out, in)
+        w = w[..., None] if "_prep" in name else w[..., None, None]
+        return name + ".weight", torch.from_numpy(np.ascontiguousarray(w))
+    return name + ".bias", torch.from_numpy(value.copy())
+
+
+def jax_path(name: str) -> Optional[Tuple[str, str]]:
+    """A state-dict name -> ``(JAX path, "kernel" | "bias")``, the inverse
+    of :func:`reference_name` (a ``module.`` prefix is dropped); ``None``
+    for a name that is neither a weight nor a bias."""
+    name = re.sub(r"^module\.", "", name)
+    stem, _, last = name.rpartition(".")
+    if last not in ("weight", "bias") or not stem:
+        return None
+    stem = re.sub(r"^levels\.", "", stem)
+    stem = stem.replace("up_layer.", "")
+    stem = re.sub(r"mlps\.(\d+)", r"mlps_\1", stem)
+    return stem.replace(".", "/"), "kernel" if last == "weight" else "bias"
+
+
+def jax_value(leaf: str, value) -> np.ndarray:
+    """A weight ``(out, in, 1[, 1])`` -> the kernel ``(in, out)``; a bias
+    as it is (numpy, on the host)."""
+    if torch.is_tensor(value):
+        value = value.detach().cpu().numpy()
+    value = np.asarray(value)
+    if leaf == "kernel":
+        value = np.ascontiguousarray(value.reshape(value.shape[:2]).T)
+    return value
+
+
 def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """Map flat JAX parameters (keys ``[params/]<path>/kernel|bias``;
@@ -61,14 +102,8 @@ def state_dict_from_jax(flat_params: Mapping[str, np.ndarray]
         path, _, leaf = key.rpartition("/")
         if not path or leaf not in ("kernel", "bias"):
             continue
-        name = reference_name(path)
-        value = np.asarray(value, np.float32)
-        if leaf == "kernel":
-            w = value.T                                      # (out, in)
-            w = w[..., None] if "_prep" in name else w[..., None, None]
-            state[name + ".weight"] = torch.from_numpy(np.ascontiguousarray(w))
-        else:
-            state[name + ".bias"] = torch.from_numpy(value.copy())
+        name, tensor = torch_param(path, leaf, value)
+        state[name] = tensor
     return state
 
 

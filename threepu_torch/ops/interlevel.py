@@ -94,8 +94,7 @@ def _plain_picks(q_xyz, prev_xyz, prev_dup, k):
     idx = []
     for t in range(p):       # one top patch at a time bounds the memory
         d = sq_dist3(q[t], prev_xyz[t][None])                # (G*N, M)
-        d = torch.where(prev_dup[t][None], torch.tensor(
-            PENALTY, dtype=d.dtype, device=d.device), d)
+        d = d.masked_fill(prev_dup[t][None], PENALTY)
         idx.append(torch.sort(d, dim=-1, stable=True).indices[:, :k])
     return torch.stack(idx)
 

@@ -62,7 +62,7 @@ def knn_group(query: torch.Tensor, points: torch.Tensor, k: int, *,
     ``unique`` ranks rows that repeat an earlier row behind every
     distinct one (``np.unique`` keep-first semantics; ``dup_mask`` may
     pass that mask precomputed).  ``valid_mask (..., N)`` ranks invalid
-    points last.  Both rank by a 1e30 penalty written with ``where``.
+    points last.  Both rank by a 1e30 penalty written with ``masked_fill``.
     """
     n = points.shape[-2]
     if k > n:
@@ -74,9 +74,9 @@ def knn_group(query: torch.Tensor, points: torch.Tensor, k: int, *,
     if valid_mask is not None:
         penalty = ~valid_mask if penalty is None else (penalty | ~valid_mask)
     if penalty is not None:
-        d = torch.where(penalty[..., None, :],
-                        torch.tensor(PENALTY, dtype=d.dtype, device=d.device),
-                        d)
+        # a Python scalar: a tensor made on the device from one would be
+        # a blocking host-to-device copy
+        d = d.masked_fill(penalty[..., None, :], PENALTY)
     dist2, idx = exact_select(d, k)
     nbrs = batched_gather(points, idx) if with_neighbors else None
     return KnnResult(neighbors=nbrs, idx=idx, dist2=dist2)

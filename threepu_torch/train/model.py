@@ -10,7 +10,11 @@
   forward, the Chamfer loss, backward and the clipped Adam update.
 - :class:`Model`: the stateful wrapper with ``set_input`` /
   ``optimize`` / ``error_log``.  It puts the net on the card unless
-  another device is named.  Checkpoints are not ported yet.
+  another device is named.
+
+The training loop over files, with its checkpoints, is
+:mod:`threepu_torch.train.loop`; the checkpoint formats are
+:mod:`threepu_torch.io.checkpoint`.
 """
 
 from __future__ import annotations
@@ -33,11 +37,19 @@ CLIP = 1.0
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    lr: float = 5e-4) -> torch.optim.Adam:
     """Adam(lr, betas (0.9, 0.999), eps 1e-8) that clips every gradient
-    element to ``[-CLIP, CLIP]`` in place before each step."""
+    element to ``[-CLIP, CLIP]`` in place before each step.
+
+    Like optax, it updates every parameter at every step: one that the
+    loss did not reach (a level above the batch's ratio) gets a zero
+    gradient, so its moments decay, its count advances and its momentum
+    still moves it, where ``torch.optim.Adam`` would skip it."""
     opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
     def clip(optimizer, args, kwargs):
         for group in optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             torch.nn.utils.clip_grad_value_(group["params"], CLIP)
 
     opt.register_step_pre_hook(clip)
