@@ -11,12 +11,14 @@ no result line:
 2. Build: compiles ``threepu_torch/csrc/*.cu`` for sm_90a with nvcc.
 3. Kernels against their plain PyTorch versions, at the shapes of the
    16x pipeline: select (k=33 over (B, 312, 312) for B = 80, 160 and 320,
-   injected ties and 1e30 penalty columns) and FPS (the level-2, 3 and 4
+   injected ties and 1e30 penalty columns) and FPS (AdaptiveLevel's 48 x
+   312 -> 48 and 48 x 48 -> 16, the level-2, 3 and 4
    merges, 8 x 6240 / 12480 / 24960 -> 1248 / 2496 / 4992, and the final
    re-stitch, 8 x 29952 -> 10000, with a mask and non-finite points; the
    cluster plan taken and microseconds per pick printed for each, then
    the pick chain's floor at each cluster size) must match exactly;
-   interlevel (P=8, C=264, k=5: group 10, M=312; group 20, M=3120; group
+   interlevel (P=8, C=264, k=5: group 20, M=312, the step-4 net's level
+   2; group 10, M=312; group 20, M=3120; group
    40, M=6240, the calls of levels 2, 3 and 4) must pick the same indices
    and agree to 1e-5, and so must, at the train step's shape (B = P = 16,
    M = 312), its weights output and the ``prev_feat`` gradient of its
@@ -24,7 +26,8 @@ no result line:
    printed for each);
    the nearest neighbours of the Chamfer loss, one way and both ways in
    one launch, laid out by the plan ((16, 624) x (16, 624), the train
-   loss, and the JAX package's 80k output against the 80k ground truth,
+   loss, (16, 1248) x (16, 1248), the step-4 net's, and the JAX
+   package's 80k output against the 80k ground truth,
    then three odd shapes: one query a cloud, one candidate, N != M) must
    match exactly, values and indices, with the plan, the clusters the
    card holds at once, the time of calls replayed back to back in a CUDA
@@ -54,8 +57,9 @@ no result line:
       on the fused chain kernel (the tight check of that kernel inside
       the net).
    b. The pipeline: held-out shape 0 (5000 points) upsampled 16x to
-      80,000 points, chunk 8, G=8 re-stitch.  The launch counts of all
-      three kernels must be above zero for that run, the output finite
+      80,000 points, chunk 8, G=8 re-stitch.  The launch counts of the
+      three kernels must be select 96, FPS 38, interlevel 18 for that run
+      (as before the capture of phase 7e existed), the output finite
       and (80000, 3), its Chamfer distance to the ground truth within
       5% of the JAX package's, and its Chamfer distance to the JAX
       output no larger than the JAX package's distance to itself when
@@ -149,9 +153,50 @@ no result line:
       and the same weights saved by ``save_pth`` must give that output bit
       for bit through ``--ckpt ...pth``.
 
+7. The rest of the one-GPU surface, against the JAX package's results
+   frozen in ``tests/fixtures/torch_surface_ref.npz``:
+
+   a. The step-4 net (``--step_ratio 4``: 2 levels of 4x, a 2-D code grid)
+      at full width on JAX's initial parameters: phase 4a's replay of the
+      fixture's patch and its bands, edge convs decomposed then fused.
+   b. The same weights as ``.npz`` through ``cli.main(["--phase", "test",
+      "--step_ratio", "4", ...])`` on shape 0, 5000 -> 80,000, chunk 8,
+      G=8, the edge-conv toggle on: finite, (80000, 3), Chamfer distance
+      to the ground truth within 5% of JAX's; select, FPS, interlevel and
+      48 edge-conv launches.  The warm s/shape, toggle off, beside 4b's.
+   c. Its train step at full width, 16 x 312: at ratio 4 on JAX's batch,
+      the loss within 1e-5 (relative) of JAX's and each gradient tensor
+      within 0.1 (relative L2); then 5 clipped-Adam steps at ratio 16 on
+      phase 5's batch: finite losses, select and interlevel launched each
+      step, Chamfer once; the warm ms/step beside 5c's.
+   d. ``AdaptiveLevel`` (growth 12, dense 3, knn 15, fm_knn 5) on JAX's
+      initial parameters and 48 patches of shape 0, 1225 points each:
+      output and global features within 1e-4 of JAX's, and of the port on
+      the CPU, on 99% of the rows; select and FPS launched.
+   e. ``cli.main(["--phase", "vis", ...])`` with the trained weights,
+      16x, the edge-conv toggle on, ``Painter.interactive_3D_plot``
+      patched to record its arguments (the card's machine has no
+      matplotlib): 16 kNN graphs, each within its own level's input cloud;
+      level 1's for the first 8 patches hold JAX's neighbour sets on 99%
+      of the rows, or on JAX's own share under 1e-6 input noise where that
+      is smaller (the order within a row is printed too: rounding
+      reorders near-equal distances).  Then ``collect_intermediates`` of
+      JAX's 48 patches: level 1's ``layer_4`` of the first 8 within 1e-4
+      of JAX's on 99% of the rows, or on JAX's own share under that noise
+      where smaller, and every graph the kNN of its level's captured
+      features under the plain selection on 99.9% of the rows.
+   f. The reference-style ops (``ball_query``, ``group_knn``,
+      ``furthest_point_sample``, ``fps_indices``,
+      ``normalize_point_batch``, ``nndistance``, ``gather_points`` and
+      its gradient) on CUDA tensors against CPU tensors, on grid clouds
+      whose arithmetic is exact: equal.
+   g. The native host library, built with ``g++``: ``parse_xyz`` of the
+      5000- and the 80,000-point shapes equals ``np.loadtxt`` bit for bit;
+      both times printed.
+
 The last two lines of standard output are one JSON object per kernel
-(launches on the checked runs of phases 4b, 4c, 5b, 6b and 6d, by path,
-error, times, bound) and ``{"ok": true, "device": {...}}``.
+(launches on the checked runs of phases 4b, 4c, 5b, 6b, 6d and 7b-7e, by
+path, error, times, bound) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -171,31 +216,53 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_port_ref.npz")
 TRAIN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_train_ref.npz")
+SURFACE_FIXTURE = os.path.join(ROOT, "tests", "fixtures",
+                               "torch_surface_ref.npz")
 WEIGHTS = os.path.join(ROOT, "artifacts", "prod_clean_final.npz")
 NET = dict(max_up_ratio=16, step_ratio=2, knn=32, growth_rate=12, dense_n=3,
            max_num_point=312, fm_knn=5)
+#: phase 7: the step-4 net (2 levels of 4x) at full width, on the JAX
+#: package's initial parameters; AdaptiveLevel at full width (knn 15: at
+#: the reference's 16 its layer4 asks for 17 neighbours among 16 points)
+NET4 = dict(NET, step_ratio=4)
+ADAPTIVE = dict(dense_n=3, growth_rate=12, knn=15, fm_knn=5)
+ADAPTIVE_TARGET = 1248
+#: edge-conv launches of one step-4 16x shape: 2 levels x 4 convs x 6
+#: chunks
+STEP4_EDGECONV_LAUNCHES = 48
+#: phase 7 bands: rows of a JAX result matched to 1e-4 (7a, 7d, 7e, as
+#: 4a), the ratio-4 loss (relative) and each gradient tensor (relative
+#: L2, as 5a at ratio 2), rows of a kNN graph holding JAX's neighbour set
+#: (7e) or equal to its recomputation from the captured features (7e)
+ROWS_BAND = 0.99
+R4_LOSS_BAND, R4_TENSOR_BAND = 1e-5, 0.1
+GRAPH_BAND, RECOMPUTED_BAND = 0.99, 0.999
 SEED = 0
 # phase 3 shapes: (B, N) of the conv-site distance matrices (k=33); FPS
 # (clouds, points, picks); interlevel (P, sub-patches per top patch, M)
 SELECT_BATCHES, SELECT_N = (80, 160, 320), 312
-#: the merge re-stitches of levels 2, 3 and 4, then a group of the final
-#: G = 8 re-stitch
-FPS_CASES = ((8, 6240, 1248), (8, 12480, 2496), (8, 24960, 4992),
-             (8, 29952, 10000))
+#: AdaptiveLevel's two samplings (48 patches: 312 -> 48, 48 -> 16), the
+#: merge re-stitches of levels 2, 3 and 4, then a group of the final G = 8
+#: re-stitch
+FPS_CASES = ((48, 312, 48), (48, 48, 16), (8, 6240, 1248), (8, 12480, 2496),
+             (8, 24960, 4992), (8, 29952, 10000))
 #: picks of the pick-chain floor (:func:`fps_chain_floor`)
 FPS_FLOOR_PICKS = 4992
-#: levels 2, 3 and 4
-INTERLEVEL_CASES = ((8, 10, 312), (8, 20, 3120), (8, 40, 6240))
-#: interlevel launches of one 16x shape at each of levels 2, 3 and 4: one
-#: a chunk, 6 chunks
+#: level 2 of the step-4 net, then levels 2, 3 and 4 of the step-2 net
+INTERLEVEL_CASES = ((8, 20, 312), (8, 10, 312), (8, 20, 3120),
+                    (8, 40, 6240))
+#: interlevel launches of one 16x shape at each re-patching level (levels
+#: 2-4 of the step-2 net, level 2 of the step-4 net): one a chunk, 6 chunks
 INTERLEVEL_LAUNCHES = 6
 #: the train step's interlevel shape: B = P = 16, one sub-patch, M = 312
 INTERLEVEL_TRAIN_CASE = (16, 1, 312)
 #: interlevel values, weights and gradient against the plain version (max
 #: abs): the kernel's exp and sums round apart from PyTorch's
 INTERLEVEL_BAND = 1e-5
-#: the train loss's nearest-neighbour shape (B, N) x (B, N)
+#: the train loss's nearest-neighbour shape (B, N) x (B, N), and the step-4
+#: net's (at ratios 4 and 16 alike)
 CHAMFER_TRAIN_CASE = (16, 624)
+CHAMFER_STEP4_CASE = (16, 1248)
 #: (B, N, M) of odd Chamfer shapes: one query a cloud, one candidate, and
 #: N != M over several tiles
 CHAMFER_ODD_CASES = ((3, 1, 700), (3, 700, 1), (2, 300, 2500))
@@ -208,6 +275,11 @@ EDGECONV_CASES = ((3, 40, 5, 4, 1), (3, 40, 5, 4, 2), (8, 312, 32, 12, 3),
 EDGECONV_BAND = 1e-5
 #: edge-conv launches of one 16x shape: 4 levels x 4 convs x 6 chunks
 EDGECONV_LAUNCHES = 96
+#: phase 4b's launches of one 16x shape (edge convs decomposed): select 4
+#: convs x 4 levels x 6 chunks; FPS the patch seeds, then per chunk 3
+#: sub-patch seedings and 3 merges, then the final re-stitch; interlevel 3
+#: levels x 6 chunks.  The same with a capture off as before it existed
+EVAL_LAUNCHES = {"select": 96, "fps": 38, "interlevel": 18}
 #: H100 SXM peaks (NVIDIA's data sheet): fp32 outside the tensor cores,
 #: and device memory
 FP32_FLOPS = 67e12
@@ -737,8 +809,9 @@ def check_kernels(dev, card: str, fx) -> dict:
               f"({report['interlevel']['bound_by']}), issue-slot floor "
               f"{interlevel_issue_floor_ms(args):.4f} ms; "
               f"clusters of {plan.cluster} x {plan.threads} threads; "
-              f"{INTERLEVEL_LAUNCHES} launches per 16x shape [{card}]",
-              flush=True)
+              f"{INTERLEVEL_LAUNCHES} launches per 16x shape of the "
+              f"{'step-4' if (group, m) == (20, 312) else 'step-2'} net "
+              f"[{card}]", flush=True)
     check_interlevel_train(dev, g, card)
 
     for b, n, m in CHAMFER_ODD_CASES:
@@ -746,6 +819,7 @@ def check_kernels(dev, card: str, fx) -> dict:
     big = [torch.from_numpy(fx[k][None]).to(dev) for k in ("jax_out", "gt")]
     check_chamfer(*big, card, 10)
     del big
+    check_chamfer(*chamfer_inputs(dev, g, *CHAMFER_STEP4_CASE), card, 50)
     train = chamfer_inputs(dev, g, *CHAMFER_TRAIN_CASE)
     report["chamfer"] = check_chamfer(*train, card, 50)
     report["edgeconv"] = check_edgeconv(dev, g, card)
@@ -899,6 +973,10 @@ def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
     out = run_shape(net, fx)
     launches = checked_launches(kernels, ("select", "fps", "interlevel"),
                                 "main-path")
+    for name, want in EVAL_LAUNCHES.items():
+        if launches[name] != want:
+            raise AssertionError(f"the 16x shape launched {name} "
+                                 f"{launches[name]} times, not {want}")
     check_output(out, fx, next(net.parameters()).device, "16x pipeline")
     best, times = warm_shape_s(net, fx)
     n_out = out.shape[0]
@@ -1796,6 +1874,472 @@ def file_training(fx, card: str, kernels: dict, bare_ms: float) -> dict:
         cli_train, cli_test = check_cli_train(path, tmp, fx, card, kernels)
     return {"loop": loop, "cli_train": cli_train, "cli_test": cli_test}
 
+# ------------------------------------------------------------ phase 7
+def surface_state(sfx, prefix: str) -> dict:
+    """The port's state dict from the fixture's JAX parameters stored
+    under ``prefix`` (``step4_params/``, ``adaptive_params/``)."""
+    from threepu_torch.io.weights import state_dict_from_jax
+    return state_dict_from_jax({k[len(prefix):]: sfx[k] for k in sfx.files
+                                if k.startswith(prefix)})
+
+
+def step4_net(sfx, device=None):
+    """The step-4 net on JAX's initial parameters, on ``device`` (the
+    card by default)."""
+    from threepu_torch.models import load_net
+    net = load_net(device=device, **NET4)
+    net.load_state_dict(surface_state(sfx, "step4_params/"), strict=True)
+    return net
+
+
+def row_share(got, want, band: float = 1e-4) -> float:
+    """Share of the rows (last axis) of ``got`` within ``band`` (max abs)
+    of ``want``'s, a numpy array."""
+    import torch
+    want = torch.from_numpy(np.ascontiguousarray(want)).to(got.device)
+    err = (got - want).abs().amax(-1).reshape(-1)
+    return float((err <= band).double().mean())
+
+
+def step4_replay(net4, fx, sfx, card: str) -> None:
+    """Phase 7a: the step-4 cascade of the fixture's patch, each level fed
+    JAX's input (:func:`replay_cascade`), edge convs decomposed then on
+    the chain kernel; phase 4a's bands."""
+    view = {"cascade_in": fx["cascade_in"],
+            **{k[len("step4_"):]: sfx[k] for k in sfx.files
+               if k.startswith("step4_cascade_")}}
+    dev = next(net4.parameters()).device
+    for chain_kernel in (False, True):
+        stats = replay_cascade(net4, view, dev, chain_kernel)
+        for st in stats:
+            print(f"step-4 cascade replay, edge-conv kernel "
+                  f"{'on' if chain_kernel else 'off'} {st} [{card}]",
+                  flush=True)
+        check_replay(stats)
+
+
+def step4_file_to_file(net4, fx, sfx, card: str, kernels: dict,
+                       off_s: float) -> dict:
+    """Phase 7b: the fixture's shape through ``cli.main(["--phase",
+    "test", "--step_ratio", "4", ...])`` with the step-4 weights written
+    as ``.npz``, the edge-conv toggle on: (80000, 3), finite, Chamfer
+    distance to the ground truth within 5% of JAX's.  Then the warm
+    seconds per shape, toggle off, beside phase 4b's ``off_s``.  Returns
+    the launch count of each kernel in the command line's run."""
+    import tempfile
+    import torch
+    import threepu_torch.ops.edgeconv as ec_mod
+    from threepu_torch import cli
+    from threepu_torch.io import read_ply
+
+    dev = next(net4.parameters()).device
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "step4.npz")
+        np.savez(weights, step=np.int64(0),
+                 **{"params/" + k[len("step4_params/"):]: sfx[k]
+                    for k in sfx.files if k.startswith("step4_params/")})
+        os.mkdir(os.path.join(tmp, "shapes"))
+        np.savetxt(os.path.join(tmp, "shapes", "shape0.xyz"), fx["input"])
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(ec_mod, "ENABLED", True):
+            cli.main(["--phase", "test", "--ckpt", weights, "--step_ratio",
+                      "4", "--test_data",
+                      os.path.join(tmp, "shapes", "*.xyz"), "--num_point",
+                      str(int(fx["num_point"])), "--up_ratio",
+                      str(int(fx["ratio"])), "--knn", str(NET4["knn"]),
+                      "--chunk", str(int(fx["chunk"])), "--result_dir",
+                      os.path.join(tmp, "out")])
+        cli_s = time.perf_counter() - t0
+        launches = checked_launches(
+            kernels, ("select", "fps", "interlevel", "edgeconv"),
+            "step-4 file-to-file")
+        out = read_ply(os.path.join(tmp, "out", "shapes", "shape0.ply"))
+    if launches["edgeconv"] != STEP4_EDGECONV_LAUNCHES:
+        raise AssertionError(f"the step-4 shape launched the edge-conv kernel "
+                             f"{launches['edgeconv']} times, not "
+                             f"{STEP4_EDGECONV_LAUNCHES}")
+    n_out = fx["input"].shape[0] * int(fx["ratio"])
+    if out.shape != (n_out, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"step-4 file-to-file: bad output {out.shape}")
+    cd_gt = chamfer(torch.from_numpy(out).to(dev),
+                    torch.from_numpy(fx["gt"]).to(dev))
+    jax_cd = float(sfx["step4_jax_cd_gt"])
+    print(f"step-4 file-to-file, edge-conv kernel on: {fx['input'].shape[0]} "
+          f"-> {n_out} in {cli_s:.3f} s with set-up; chamfer to gt "
+          f"{cd_gt:.6e} (JAX {jax_cd:.6e}, ratio {cd_gt / jax_cd:.4f}; JAX "
+          f"under 1e-6 input noise {float(sfx['step4_jax_pert_cd_gt']):.6e}) "
+          f"[{card}]", flush=True)
+    if abs(cd_gt - jax_cd) > 0.05 * jax_cd:
+        raise AssertionError("step-4: chamfer to gt is not within 5% of "
+                             "JAX's")
+    best, times = warm_shape_s(net4, fx)
+    print(f"step-4 16x warm s/shape, edge-conv kernel off {best:.4f} (runs "
+          f"{[round(t, 4) for t in times]}); step-2 net {off_s:.4f} (phase "
+          f"4b) [{card}]", flush=True)
+    return launches
+
+
+def step4_training(sfx, tfx, card: str, kernels: dict,
+                   bare_ms: float) -> dict:
+    """Phase 7c: the step-4 net's train step at full width.  At ratio 4
+    (no re-patch) on JAX's batch: the loss within ``R4_LOSS_BAND`` of
+    JAX's and every gradient tensor within ``R4_TENSOR_BAND``.  Then 5
+    clipped-Adam steps at ratio 16 on phase 5's batch (16 x 312, gt 16 x
+    4992), re-patch seeds from a seeded generator: finite losses, select
+    and interlevel launched every step, the Chamfer kernel once.  Then
+    the warm ms/step at ratio 16 beside phase 5c's ``bare_ms``.  Returns
+    the launch count of each kernel in the 5 steps."""
+    import torch
+    from threepu_torch.io.weights import state_dict_from_jax
+    from threepu_torch.train import make_optimizer, train_step
+
+    net = step4_net(sfx).train()
+    dev = next(net.parameters()).device
+
+    def arr(f, key):
+        return torch.from_numpy(f[key]).to(dev)
+
+    loss, grads = step_grads(net, arr(sfx, "input_4"), arr(sfx, "gt_4"), 4,
+                             [])
+    want = state_dict_from_jax({k[len("grad_4/"):]: sfx[k]
+                                for k in sfx.files if k.startswith("grad_4/")})
+    st = compare_grads(loss, grads, float(sfx["loss_4"]), want)
+    print(f"step-4 train ratio 4: loss {st['loss']:.9e} (JAX "
+          f"{st['ref_loss']:.9e}, rel err {st['loss_err']:.3e}); gradients "
+          f"rel L2 {st['grad_err']:.3e}, worst tensor {st['worst_err']:.3e} "
+          f"({st['worst']}) [{card}]", flush=True)
+    if not (st["loss_err"] <= R4_LOSS_BAND
+            and st["worst_err"] <= R4_TENSOR_BAND):
+        raise AssertionError("step-4 ratio 4: loss or a gradient outside its "
+                             "band")
+
+    opt = make_optimizer(net.parameters(), TRAIN_LR)
+    x, gt = arr(tfx, "input_16"), arr(tfx, "gt_16")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    train_kernels = {k: kernels[k] for k in ("select", "interlevel",
+                                             "chamfer")}
+    for k in kernels.values():
+        k.launches = 0
+    losses = []
+    for _ in range(5):
+        before = {name: k.launches for name, k in train_kernels.items()}
+        losses.append(float(train_step(net, opt, x, gt, 16, generator=gen)))
+        for name, k in train_kernels.items():
+            if k.launches <= before[name]:
+                raise AssertionError(f"a step-4 train step never launched "
+                                     f"{name}")
+        if train_kernels["chamfer"].launches - before["chamfer"] != 1:
+            raise AssertionError("a step-4 train step launched the Chamfer "
+                                 "kernel more than once")
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"step-4 train-path launches (5 steps at ratio 16): {launches}; "
+          f"losses {losses} [{card}]", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("a step-4 training loss is not finite")
+    times = []
+    for i in range(12):
+        t0 = time.perf_counter()
+        train_step(net, opt, x, gt, 16, generator=gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    print(f"step-4 train step ratio 16, batch {TRAIN_BATCH} x {TRAIN_POINTS}: "
+          f"warm {float(np.median(times)):.3f} ms/step (median of 10; "
+          f"{[round(t, 3) for t in times]}); step-2 net {bare_ms:.3f} (phase "
+          f"5c) [{card}]", flush=True)
+    return launches
+
+
+def adaptive_level(sfx, card: str, kernels: dict) -> dict:
+    """Phase 7d: ``AdaptiveLevel`` at full width on JAX's initial
+    parameters, 48 patches of 312 points to 35² = 1225: output and global
+    features within 1e-4 of JAX's on at least ``ROWS_BAND`` of the rows,
+    and of the port's on the CPU alike; select and FPS launched.  Returns
+    the launch count of each kernel in the card's run."""
+    import torch
+    from threepu_torch.device import require_cuda
+    from threepu_torch.models import AdaptiveLevel
+
+    state = surface_state(sfx, "adaptive_params/")
+    nets = {}
+    for name, dev in (("card", require_cuda()), ("cpu", torch.device("cpu"))):
+        nets[name] = AdaptiveLevel(**ADAPTIVE).to(dev).eval()
+        nets[name].load_state_dict(state, strict=True)
+    x = torch.from_numpy(sfx["patches"])
+    for k in kernels.values():
+        k.launches = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, gfeat = nets["card"](x.to(require_cuda()), ADAPTIVE_TARGET)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = checked_launches(kernels, ("select", "fps"),
+                                    "adaptive level")
+        cpu_out, cpu_gfeat = nets["cpu"](x, ADAPTIVE_TARGET)
+    shares = {"out vs JAX": row_share(out, sfx["adaptive_out"]),
+              "gfeat vs JAX": row_share(gfeat, sfx["adaptive_gfeat"]),
+              "out vs CPU": row_share(out, cpu_out.numpy()),
+              "gfeat vs CPU": row_share(gfeat, cpu_gfeat.numpy())}
+    print(f"adaptive level {tuple(x.shape)} -> {tuple(out.shape)}, global "
+          f"{tuple(gfeat.shape)}: rows within 1e-4 {shares}; first call "
+          f"{card_s:.3f} s [{card}]", flush=True)
+    if tuple(out.shape) != (x.shape[0], 35 * 35, 3) or \
+            min(shares.values()) < ROWS_BAND:
+        raise AssertionError("adaptive level outside its band")
+    return launches
+
+
+def recomputed_graph_share(net, cap: dict, level: int, i: int) -> float:
+    """Share of the rows of ``level_<level>.nnIdx_layer_<i>`` (merged, as
+    :func:`threepu_torch.vis.collect_intermediates` returns them) that equal
+    the ``k`` nearest of that level's captured features (``layer_0``, else
+    ``layer<i+1>_prep`` of ``layer_i``), ranked by the plain selection
+    (unique, the level's duplicate mask, self dropped)."""
+    import torch
+    import threepu_torch.ops.knn as knn_mod
+    from threepu_torch.ops.distances import duplicate_mask
+    from threepu_torch.ops.normalize import normalize_point_batch_cl
+
+    dev = next(net.parameters()).device
+    lvl = net.levels[f"level_{level}"]
+    xyz = torch.from_numpy(cap[f"level_{level}.xyz_in"][0]).to(dev)
+    got = torch.from_numpy(cap[f"level_{level}.nnIdx_layer_{i}"][0]).to(dev)
+    k, n = got.shape[-1], int(NET["max_num_point"])    # (sub-)patch size
+    b = xyz.shape[0] // n
+    feats = torch.from_numpy(cap[f"level_{level}.layer_{i}"][0]).to(dev)
+    feats = feats.reshape(b, n, -1)
+    with torch.no_grad():
+        if i > 0:
+            feats = getattr(lvl, f"layer{i + 1}_prep")(feats)
+        # the level's mask: on its input as given at level 1, else on the
+        # normalized sub-patches
+        src = xyz.reshape(b, n, 3)
+        dup = duplicate_mask(src if level == 1
+                             else normalize_point_batch_cl(src)[0])
+        kernel = knn_mod.EXACT_SELECT_KERNEL
+        knn_mod.set_exact_select_kernel(False)
+        try:
+            idx = knn_mod.knn_group(feats, feats, k + 1, unique=True,
+                                    dup_mask=dup, with_neighbors=False).idx
+        finally:
+            knn_mod.set_exact_select_kernel(kernel)
+    want = (idx[..., 1:] + torch.arange(b, device=dev, dtype=idx.dtype)
+            [:, None, None] * n).reshape(-1, k)
+    return float((want == got).all(-1).double().mean())
+
+
+def vis_phase_check(fx, sfx, card: str, kernels: dict) -> dict:
+    """Phase 7e: ``cli.main(["--phase", "vis", ...])`` with the trained
+    weights on the fixture's shape at 16x, the edge-conv toggle on and
+    ``Painter.interactive_3D_plot`` patched to record its arguments (the
+    card's machine has no matplotlib): 16 graphs, each with its own
+    level's input cloud, every index inside it; level 1's graphs of the
+    first 8 patches hold JAX's frozen neighbour sets on ``GRAPH_BAND`` of
+    the rows, or, where smaller, on the share JAX keeps against itself
+    when its input is scaled by ``1 + 1e-6 N(0, 1)`` (the fixture's
+    ``vis_control_sets``, the smallest of 8 seeds): near-equal distances
+    flip under rounding, most in the deepest layer (JAX keeps 97.7-99.2%
+    of layer 3's sets and 84-94% of its rows in order).  The edge conv
+    maxes over the set, so the order within a row is printed only.  Then
+    ``collect_intermediates`` of JAX's 48 patches: level 1's ``layer_4``
+    of the first 8 within 1e-4 of JAX's on ``ROWS_BAND`` of the rows, or,
+    where smaller, on JAX's own share under that noise
+    (``vis_control_layer4``: a neighbour set that flips moves its row's
+    max-pooled features); and each graph of every level the kNN of its
+    level's captured features under the plain selection, in order, on
+    ``RECOMPUTED_BAND`` of the rows.
+    Returns the launch count of each kernel in the command line's run."""
+    import tempfile
+    import torch
+    import threepu_torch.ops.edgeconv as ec_mod
+    import threepu_torch.vis as vis_mod
+    from threepu_torch import cli
+    from threepu_torch.models import load_net
+
+    plots = []
+
+    def record(self, xyz, name="", show=True):
+        plots.append((name, np.array(self.nnIdx), np.array(xyz)))
+
+    n_vis = sfx["vis_layer_4"].shape[1]
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(vis_mod.Painter, "interactive_3D_plot", record), \
+            mock.patch.object(ec_mod, "ENABLED", True):
+        os.mkdir(os.path.join(tmp, "shapes"))
+        np.savetxt(os.path.join(tmp, "shapes", "shape0.xyz"), fx["input"])
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["--phase", "vis", "--ckpt", WEIGHTS, "--test_data",
+                  os.path.join(tmp, "shapes", "*.xyz"), "--num_point",
+                  str(NET["max_num_point"]), "--up_ratio",
+                  str(NET["max_up_ratio"]), "--knn", str(NET["knn"])])
+        cli_s = time.perf_counter() - t0
+        launches = checked_launches(
+            kernels, ("select", "fps", "interlevel", "edgeconv"),
+            "cli --phase vis")
+        names = [f"level_{l}.nnIdx_layer_{i}" for l in range(1, 5)
+                 for i in range(4)]
+        if [p[0] for p in plots] != names:
+            raise AssertionError(f"vis plotted {[p[0] for p in plots]}")
+        graphs = {}
+        for name, idx, xyz in plots:
+            if idx.shape != (xyz.shape[0], NET["knn"]) or idx.min() < 0 \
+                    or idx.max() >= xyz.shape[0]:
+                raise AssertionError(f"vis {name}: graph {idx.shape} does not "
+                                     f"fit its cloud {xyz.shape}")
+            if name.startswith("level_1."):
+                got, want = idx[:n_vis], sfx[f"vis_nnIdx_layer_{name[-1]}"][0]
+                graphs[name] = (
+                    round(float((got == want).all(-1).mean()), 5),
+                    round(float((np.sort(got, -1) == np.sort(want, -1))
+                                .all(-1).mean()), 5))
+        # per layer: 99%, or JAX's own share under 1e-6 input noise where
+        # that is smaller
+        bands = np.minimum(GRAPH_BAND, np.min(sfx["vis_control_sets"], 0))
+        print(f"cli --phase vis, 16x, edge-conv kernel on: 16 graphs, clouds "
+              f"{[p[2].shape[0] for p in plots[::4]]} points by level; level "
+              f"1 rows equal to JAX's in order and as sets {graphs}; JAX "
+              f"against itself under 1e-6 input noise, smallest of 8 seeds: "
+              f"in order {np.min(sfx['vis_control_rows'], 0).round(5).tolist()}"
+              f", as sets {np.min(sfx['vis_control_sets'], 0).round(5).tolist()}"
+              f"; {cli_s:.3f} s with set-up [{card}]", flush=True)
+        if any(sets < band for (_, sets), band in zip(graphs.values(), bands)):
+            raise AssertionError("vis: level 1's graphs differ from JAX's "
+                                 "beyond its float-noise control")
+
+        net = load_net(WEIGHTS, **NET).eval()
+        cap = vis_mod.collect_intermediates(net, sfx["patches"],
+                                            NET["max_up_ratio"])
+    layer4 = row_share(torch.from_numpy(cap["level_1.layer_4"][0, :n_vis]),
+                       sfx["vis_layer_4"][0])
+    recomputed = {f"{l}.{i}": recomputed_graph_share(net, cap, l, i)
+                  for l in range(1, 5) for i in range(4)}
+    print(f"vis capture of JAX's 48 patches: level 1 layer_4 rows within 1e-4 "
+          f"of JAX's {layer4:.5f} (JAX against itself under 1e-6 input noise: "
+          f"{np.sort(sfx['vis_control_layer4']).round(5).tolist()}); graphs "
+          f"equal to the kNN of their level's captured features {recomputed} "
+          f"[{card}]", flush=True)
+    if layer4 < min(ROWS_BAND, float(np.min(sfx["vis_control_layer4"]))) \
+            or min(recomputed.values()) < RECOMPUTED_BAND:
+        raise AssertionError("vis capture outside its band")
+    return launches
+
+
+def grid_cloud(rng, b: int, n: int):
+    """``(b, 2n, 3)`` points on a 0.25 grid in [-2, 2], each with its
+    mirror image: sums, squares and the centroid (0) are exact in float32
+    in any order, and many distances tie."""
+    half = rng.integers(-8, 9, (b, n, 3)) * 0.25
+    return np.concatenate([half, -half], axis=1).astype(np.float32)
+
+
+def reference_ops(card: str) -> None:
+    """Phase 7f: the reference-style ops and ``ball_query`` on CUDA tensors
+    against the same calls on CPU tensors, on grid clouds whose arithmetic
+    is exact: every output equal (ties to the lowest index on both), and
+    ``gather_points``' gradient."""
+    import torch
+    import threepu_torch.ops as ops
+    from threepu_torch.device import require_cuda
+
+    rng = np.random.default_rng(SEED)
+    pts, q = grid_cloud(rng, 4, 256), grid_cloud(rng, 4, 32)
+    feats = rng.integers(-5, 6, (4, 6, 512)).astype(np.float32)
+    idx = rng.integers(0, 512, (4, 200)).astype(np.int32)
+    cot = rng.integers(-3, 4, (4, 6, 200)).astype(np.float32)
+    calls = {
+        "ball_query": lambda p, q, f, i: ops.ball_query(0.75, 8, p, q),
+        "group_knn NCHW": lambda p, q, f, i: ops.group_knn(
+            8, q.transpose(1, 2), p.transpose(1, 2)),
+        "group_knn": lambda p, q, f, i: ops.group_knn(8, q, p, NCHW=False),
+        "furthest_point_sample": lambda p, q, f, i: ops.furthest_point_sample(
+            p.transpose(1, 2), 64),
+        "fps_indices": lambda p, q, f, i: ops.fps_indices(p, 64),
+        "normalize_point_batch": lambda p, q, f, i: ops.normalize_point_batch(
+            p.transpose(1, 2)),
+        "nndistance": lambda p, q, f, i: ops.nndistance(p, q),
+        "gather_points": lambda p, q, f, i: ops.gather_points(f, i)}
+    dev = require_cuda()
+    for name, fn in calls.items():
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            args = [torch.from_numpy(a).to(d) for a in (pts, q, feats, idx)]
+            out = fn(*args)
+            outs.append([o.cpu() for o in (out if isinstance(out, tuple)
+                                           else (out,))])
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise AssertionError(f"{name}: the card and the CPU differ")
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        f = torch.from_numpy(feats).to(d).requires_grad_()
+        ops.gather_points(f, torch.from_numpy(idx).to(d)).backward(
+            torch.from_numpy(cot).to(d))
+        grads.append(f.grad.cpu())
+    if not torch.equal(*grads):
+        raise AssertionError("gather_points: gradients differ")
+    print(f"reference-style ops on the card equal the CPU's: {list(calls)} "
+          f"and gather_points' gradient [{card}]", flush=True)
+
+
+def native_host(fx, card: str) -> None:
+    """Phase 7g: the native host library built with ``g++`` on the card's
+    machine; ``parse_xyz`` of the fixture's 5000- and 80,000-point shapes
+    written with ``np.savetxt`` equals ``np.loadtxt(...).astype(float32)``
+    bit for bit (any row that differs is printed), with both times."""
+    import tempfile
+    from threepu_torch import native
+
+    native.load()
+    print(f"native host library: {native.library_path().name} (built with g++ "
+          f"at its first use in this run) [{card}]", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in ("input", "gt"):
+            path = os.path.join(tmp, f"{key}.xyz")
+            np.savetxt(path, fx[key])
+            t0 = time.perf_counter()
+            got = native.parse_xyz(path)
+            parse_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = np.loadtxt(path).astype(np.float32)
+            loadtxt_s = time.perf_counter() - t0
+            rows = np.flatnonzero((got.view(np.int32)
+                                   != want.view(np.int32)).any(-1)) \
+                if got.shape == want.shape else np.arange(len(want))
+            print(f"parse_xyz {want.shape}: {parse_s * 1e3:.2f} ms, "
+                  f"np.loadtxt {loadtxt_s * 1e3:.2f} ms; rows differing bit "
+                  f"for bit: {len(rows)} {rows[:10].tolist()} [{card}]",
+                  flush=True)
+            for r in rows[:10]:
+                print(f"  row {r}: parse_xyz {got[r].tolist()} loadtxt "
+                      f"{want[r].tolist()}", flush=True)
+            if len(rows):
+                raise AssertionError(f"parse_xyz differs from np.loadtxt on "
+                                     f"{key}")
+
+
+def surface(fx, card: str, kernels: dict, off_s: float,
+            bare_ms: float) -> dict:
+    """Phase 7 (7a-7g); returns the launch count of each kernel on the
+    paths it drives: ``step4`` (7b), ``step4_train`` (7c), ``adaptive``
+    (7d), ``vis`` (7e)."""
+    t0 = time.perf_counter()
+    sfx = np.load(SURFACE_FIXTURE)
+    net4 = step4_net(sfx).eval()
+    step4_replay(net4, fx, sfx, card)
+    paths = {"step4": step4_file_to_file(net4, fx, sfx, card, kernels, off_s)}
+    del net4
+    paths["step4_train"] = step4_training(sfx, np.load(TRAIN_FIXTURE), card,
+                                          kernels, bare_ms)
+    paths["adaptive"] = adaptive_level(sfx, card, kernels)
+    paths["vis"] = vis_phase_check(fx, sfx, card, kernels)
+    reference_ops(card)
+    native_host(fx, card)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return paths
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1862,6 +2406,9 @@ def main() -> int:
 
     # 6. training from a file
     file_train = file_training(fx, card, kernels, step_ms)
+
+    # 7. the rest of the one-GPU surface
+    file_train.update(surface(fx, card, kernels, off_s, step_ms))
 
     by_path = {name: {"eval": eval_launches.get(name, 0),
                       "file": file_launches.get(name, 0),

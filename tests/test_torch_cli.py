@@ -170,7 +170,7 @@ def test_cli_no_match_warns_and_writes_nothing(tiny, capsys):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--phase", "vis"], SystemExit, "vis is not ported"),
+    (["--phase", "vis", "--ckpt", ""], SystemExit, "--ckpt is required for vis"),
     (["--phase", "bogus"], SystemExit, "unknown phase"),
     (["--knn_method", "approx"], NotImplementedError, "approx"),
     (["--knn_method", "auto"], NotImplementedError, "auto"),

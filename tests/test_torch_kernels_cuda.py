@@ -83,10 +83,12 @@ def test_select_kernel_rejects_what_it_does_not_take(dev):
     (8, 12480, 300, 8, False), (8, 24960, 200, 8, False),
     (8, 40000, 200, 8, False), (1, 250000, 32, 8, False),
     (1, 100000, 64, 8, False), (2, 8192, 500, 4, True),
-    (1, 40000, 300, 8, True)],
+    (1, 40000, 300, 8, True), (48, 312, 48, 1, False),
+    (48, 48, 16, 1, False)],
     ids=["small", "wide", "all-points", "cluster-2", "cluster-8",
          "cluster-8-16-a-thread", "large-cloud", "device-memory",
-         "shared-memory", "repeated-4", "repeated-8"])
+         "shared-memory", "repeated-4", "repeated-8", "adaptive-312",
+         "adaptive-48"])
 def test_fps_kernel_matches_plain(dev, gen, b, n, m, cluster, repeated):
     """Bit for bit at every cluster size the plan chooses, with the slice
     in registers (8 and 16 points a thread), in shared memory (N =
@@ -199,6 +201,7 @@ _INTERLEVEL_CASES = {
     "n9": (2, 2, 9, 40, 24, 5, "random"),
     "flagged-nonfinite": (2, 2, 30, 13, 24, 8, "nonfinite"),
     "level2": (1, 10, 312, 312, 264, 5, "random"),
+    "step4-level2": (8, 20, 312, 312, 264, 5, "random"),
     "level3": (1, 20, 312, 3120, 264, 5, "random"),
     "level4": (1, 40, 312, 6240, 264, 5, "random")}
 
@@ -303,9 +306,11 @@ def _nn_inputs(gen, dev, b, n, m):
 
 @pytest.mark.parametrize("b,n,m", [(16, 624, 624), (2, 300, 2500),
                                    (3, 129, 1), (1, 5000, 4099),
-                                   (3, 1, 700), (2, 2500, 300)],
+                                   (3, 1, 700), (2, 2500, 300),
+                                   (16, 1248, 1248)],
                          ids=["train", "ragged-tile", "one-candidate",
-                              "three-tiles", "one-query", "n-above-m"])
+                              "three-tiles", "one-query", "n-above-m",
+                              "step4-train"])
 def test_nn_kernel_matches_plain(dev, gen, b, n, m):
     """Bit for bit, values and indices, one way and both ways in one
     launch: ties to the lowest index, duplicate points, M not a multiple

@@ -4,6 +4,8 @@
         --num_point 312 --test_data 'shapes/*.xyz' --result_dir out
     python -m threepu_torch.cli --phase train --h5_data data/train_*.npz \\
         --num_shape_point 5000 --num_point 312 --log_dir model --id demo
+    python -m threepu_torch.cli --phase vis --ckpt weights.npz \\
+        --num_point 312 --test_data 'shapes/*.xyz'
 
 The flags are the JAX package's, name by name, with the same defaults and
 choices, so a command line of ``python -m threepu.cli`` carries over.
@@ -12,8 +14,11 @@ choices, so a command line of ``python -m threepu.cli`` carries over.
 ``--ckpt`` is a JAX-package ``.npz`` or a reference ``.pth``.  ``--phase
 train`` trains from an ``.hdf5`` or ``.npz`` training file and writes
 ``<log_dir>/<id>/model_<epoch>.npz`` (:func:`threepu_torch.train.train_loop`).
-What is not ported raises: ``--phase vis`` and every ``--knn_method`` but
-``exact``.
+``--phase vis`` captures the cascade's per-level kNN graphs of each test
+file and plots each with :class:`threepu_torch.vis.Painter` (matplotlib).
+``--step_ratio`` sets the net's per-level ratio in every phase (2: a 1-D
+code column, 4: a 2-D code grid).  Every ``--knn_method`` but ``exact``
+raises: they are not ported.
 
 The entry point runs on the CUDA device ``--device`` (or ``--gpu``) and
 raises where none is visible.  A Python caller may name another device:
@@ -38,7 +43,8 @@ from threepu_torch.models import Net, load_net
 from threepu_torch.ops import knn
 from threepu_torch.train import TrainConfig, train_loop
 from threepu_torch.utils import logger
-from threepu_torch.vis import VisdomMonitor
+from threepu_torch.utils.profiling import trace
+from threepu_torch.vis import VisdomMonitor, vis_phase
 
 Device = Optional[Union[str, torch.device]]
 
@@ -46,8 +52,7 @@ Device = Optional[Union[str, torch.device]]
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("threepu_torch")
     p.add_argument("--phase", default="test",
-                   help="train or test (vis is not ported yet) "
-                        "[default: test]")
+                   help="train or test or vis [default: test]")
     p.add_argument("--device", type=int, default=0,
                    help="CUDA device ordinal (reference: --gpu)")
     p.add_argument("--gpu", type=int, default=0,
@@ -166,19 +171,6 @@ def _build_net(flags, device: Device = None) -> Net:
     return net.eval()
 
 
-def _profiled(profile_dir: str, on_cuda: bool):
-    """A ``torch.profiler`` context that writes ``trace.json`` (a Chrome
-    trace) into ``profile_dir`` when it closes."""
-    from torch.profiler import ProfilerActivity, profile
-    os.makedirs(profile_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if on_cuda:
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=lambda prof: prof.export_chrome_trace(
-                       os.path.join(profile_dir, "trace.json")))
-
-
 def run_test(flags, result_dir: str, device: Device = None) -> None:
     """Upsample every file matching ``--test_data`` into ``result_dir``."""
     if flags.num_point is None and flags.num_shape_point is None:
@@ -219,7 +211,7 @@ def run_test(flags, result_dir: str, device: Device = None) -> None:
             logger.info(os.path.basename(path))
             prof_ctx = contextlib.nullcontext()
             if flags.profile_dir and i == 0:
-                prof_ctx = _profiled(flags.profile_dir, on_cuda)
+                prof_ctx = trace(flags.profile_dir, cuda=on_cuda)
             start = time.perf_counter()
             with prof_ctx:
                 inp, up = upsample_shape(
@@ -265,25 +257,35 @@ def run_train(flags, device: Device = None) -> None:
                device=_device(flags, device))
 
 
+def run_vis(flags, result_dir: str, device: Device = None) -> None:
+    """Capture and plot the kNN graphs of every file matching
+    ``--test_data`` (:func:`threepu_torch.vis.vis_phase`)."""
+    if flags.num_point is None and flags.num_shape_point is None:
+        raise SystemExit("--num_point (or --num_shape_point) is required "
+                         "for vis")
+    if flags.test_data is None:
+        raise SystemExit("--test_data is required for vis")
+    vis_phase(flags, _build_net(flags, device), result_dir)
+
+
 def main(argv: Optional[Sequence[str]] = None, device: Device = None) -> None:
     """Parse ``argv`` (default: the process's arguments) and run the phase
     on the GPU, or on ``device`` when a Python caller names one."""
     flags = build_parser().parse_args(argv)
-    if flags.phase == "vis":
-        raise SystemExit("--phase vis is not ported yet; threepu_torch.cli "
-                         "runs --phase train and --phase test")
-    if flags.phase not in ("train", "test"):
+    if flags.phase not in ("train", "test", "vis"):
         raise SystemExit(f"unknown phase {flags.phase!r}")
     if flags.knn_method != "exact":
         raise NotImplementedError(
             f"--knn_method {flags.knn_method} is not ported; only 'exact' is")
-    if flags.phase == "test" and flags.ckpt is None:
-        raise SystemExit("--ckpt is required for test")
+    if flags.phase != "train" and flags.ckpt is None:
+        raise SystemExit(f"--ckpt is required for {flags.phase}")
     select_kernel = knn.EXACT_SELECT_KERNEL
     knn.set_exact_select_kernel(flags.select_kernel == "on")
     try:
         if flags.phase == "train":
             run_train(flags, device)
+        elif flags.phase == "vis":
+            run_vis(flags, result_path_for(flags), device)
         else:
             run_test(flags, result_path_for(flags), device)
     finally:

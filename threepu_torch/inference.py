@@ -42,6 +42,17 @@ def plan_patches(num_shape_point: int, num_point: int,
     return num_patches, padded, chunk
 
 
+def cut_patches(shape_b: torch.Tensor, num_patches: int, num_point: int,
+                valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The ``num_point`` points of ``shape_b (1, N, 3)`` nearest each of
+    ``num_patches`` FPS seeds, ``(num_patches, num_point, 3)``; points
+    outside ``valid_mask (1, N)`` are neither seeds nor picked first."""
+    seeds = gather_nd(shape_b, _dispatch_fps(shape_b, num_patches,
+                                             valid_mask))
+    return knn_group(seeds, shape_b, num_point,
+                     valid_mask=valid_mask).neighbors[0]
+
+
 def resolve_restitch_groups(requested: Optional[int], num_out: int) -> int:
     """``restitch_groups`` argument -> group count (``None`` = auto)."""
     if requested is not None:
@@ -78,9 +89,7 @@ def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
     n_mask = None
     if valid_n is not None:
         n_mask = (torch.arange(n, device=dev) < valid_n)[None]
-    seeds = gather_nd(shape_b, _dispatch_fps(shape_b, num_patches, n_mask))
-    patches = knn_group(seeds, shape_b, num_point,
-                        valid_mask=n_mask).neighbors[0]       # (P, K, 3)
+    patches = cut_patches(shape_b, num_patches, num_point, n_mask)
     if padded != num_patches:
         pad = patches[:1].expand(padded - num_patches, -1, -1)
         patches = torch.cat([patches, pad], dim=0)

@@ -1,6 +1,8 @@
 """Point-cloud files in and out (own copy of ``threepu/io/pointcloud.py``):
 ``.ply`` through :mod:`threepu_torch.io.ply`, any other extension as
-whitespace-separated text (``.xyz``).
+whitespace-separated text (``.xyz``), parsed by the native library's
+:func:`~threepu_torch.native.parse_xyz` where it builds and the file is
+plain rows of numbers, else by ``np.loadtxt``.
 """
 
 from __future__ import annotations
@@ -9,10 +11,16 @@ from typing import Optional
 
 import numpy as np
 
+from threepu_torch import native
 from threepu_torch.io.ply import read_ply, resize_count, save_ply
 
 
 def _load_text(filename: str) -> np.ndarray:
+    if native.available():
+        try:
+            return native.parse_xyz(filename)
+        except ValueError:        # comments or ragged rows: np.loadtxt's
+            pass
     return np.loadtxt(filename).astype(np.float32)
 
 

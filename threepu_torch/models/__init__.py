@@ -1,7 +1,15 @@
 """Network modules (port of :mod:`threepu.models`)."""
 
-from threepu_torch.models.layers import Conv1x1, DenseConv, DenseEdgeConv
-from threepu_torch.models.upsampler import Level, Net, gen_1d_grid, load_net
+from threepu_torch.models.layers import (Conv1x1, DenseConv, DenseEdgeConv,
+                                         SampledDenseEdgeConv)
+from threepu_torch.models.upsampler import (AdaptiveLevel, Level, Net,
+                                            exponential_distance, gen_1d_grid,
+                                            gen_grid, level_code, load_net)
 
-__all__ = ["Conv1x1", "DenseConv", "DenseEdgeConv", "Level", "Net",
-           "gen_1d_grid", "load_net"]
+__all__ = [
+    "DenseConv", "DenseEdgeConv", "SampledDenseEdgeConv",
+    "Level", "Net", "AdaptiveLevel",
+    "exponential_distance", "gen_grid", "gen_1d_grid",
+    # the port's own
+    "Conv1x1", "level_code", "load_net",
+]

@@ -16,7 +16,8 @@ import torch
 from torch import nn
 
 from threepu_torch.ops.edgeconv import edge_conv_chain
-from threepu_torch.ops.gather import batched_gather
+from threepu_torch.ops.fps import fps_indices
+from threepu_torch.ops.gather import batched_gather, gather_nd
 from threepu_torch.ops.knn import knn_group
 
 
@@ -111,3 +112,51 @@ class DenseEdgeConv(nn.Module):
             gs.append(y if i == self.n - 1 else torch.relu(y))
         pooled = [torch.amax(gi, dim=-2) for gi in reversed(gs)]
         return torch.cat(pooled + [x], dim=-1), idx
+
+
+class SampledDenseEdgeConv(nn.Module):
+    """Edge convolution from sampled query points against the whole set
+    (``threepu/models/layers.py:297-339``), as :class:`AdaptiveLevel`
+    downsamples.
+
+    ``nsample`` points of ``xyz`` are picked by FPS (one: the point
+    nearest the centroid); around each, the ``k`` nearest feature rows
+    (``k + 1``, unique, the first dropped) form edges ``[c, x_nn - c]``
+    through the dense chain (``mlps_0`` with a ReLU and the tiled centre
+    appended, then ``y = [mlp_i(y), y]``, ReLU on all but the last), and
+    a max over the neighbours.  Output: ``in_features + n * growth``
+    channels.
+    """
+
+    def __init__(self, in_features: int, growth_rate: int, n: int, k: int):
+        super().__init__()
+        self.n, self.k = n, k
+        ins = [2 * in_features] + [growth_rate * i + in_features
+                                   for i in range(1, n)]
+        self.mlps = nn.ModuleList(Conv1x1(i, growth_rate) for i in ins)
+
+    def forward(self, x: torch.Tensor, nsample: int, xyz: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``x (B, N, C)`` features of the points ``xyz (B, N, 3)`` ->
+        ``(y (B, nsample, C'), sampled xyz (B, nsample, 3), sampled idx
+        (B, nsample) int32)``."""
+        if nsample == 1:
+            centroid = torch.mean(xyz, dim=-2, keepdim=True)
+            res = knn_group(centroid, xyz, 1)
+            sampled_xyz, sampled_idx = res.neighbors[..., 0, :], res.idx[..., 0]
+        else:
+            sampled_idx = fps_indices(xyz, nsample)
+            sampled_xyz = gather_nd(xyz, sampled_idx)
+        center = gather_nd(x, sampled_idx)[..., None, :]         # (B, S, 1, C)
+        nbrs = knn_group(center[..., 0, :], x, self.k + 1,
+                         unique=True).neighbors[..., 1:, :]      # (B, S, k, C)
+        center = center.expand_as(nbrs)
+        y = torch.cat([center, nbrs - center], dim=-1)
+        for i, mlp in enumerate(self.mlps):
+            out = y @ mlp.matrix() + mlp.bias
+            if i == 0:
+                y = torch.cat([torch.relu(out), center], dim=-1)
+            else:
+                y = torch.cat([out if i == self.n - 1 else torch.relu(out), y],
+                              dim=-1)
+        return torch.amax(y, dim=-2), sampled_xyz, sampled_idx

@@ -1,5 +1,6 @@
 """The progressive upsampling cascade (port of
-``threepu/models/upsampler.py``: ``Level`` and ``Net``, train and eval).
+``threepu/models/upsampler.py``: ``Level`` and ``Net``, train and eval,
+and ``AdaptiveLevel``).
 
 Layout is channels-last ``(B, N, 3)``.  The train cascade cuts, at each
 level whose input exceeds ``max_num_point``, one kNN patch around a
@@ -10,13 +11,19 @@ seeding instead of dropped, sub-patches beyond the reference's dynamic
 count (``true_sub``) are phantoms that never enter the merge and are
 folded into the next level's ``prev_dup``, and each level's merge
 re-stitches by FPS over the real sub-patches only.
+
+A ``capture`` dict given to :meth:`Net.upsample` (or to a
+:class:`Level`) receives each level's input points, layer features and
+edge-conv kNN indices, keyed ``"level_<l>.<name>"`` as the JAX package's
+flax ``intermediates`` collection holds them; without one nothing is
+recorded.
 """
 
 from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,15 +31,33 @@ from torch import nn
 
 from threepu_torch.device import resolve_device
 from threepu_torch.io.weights import load_jax_checkpoint
-from threepu_torch.models.layers import DenseConv, DenseEdgeConv
+from threepu_torch.models.layers import (DenseConv, DenseEdgeConv,
+                                         SampledDenseEdgeConv)
 from threepu_torch.ops import edgeconv
 from threepu_torch.ops.chamfer import self_nn_dist2
 from threepu_torch.ops.distances import duplicate_mask
 from threepu_torch.ops.fps import _dispatch_fps, fps
-from threepu_torch.ops.gather import gather_nd
+from threepu_torch.ops.gather import batched_gather, gather_nd
 from threepu_torch.ops.interlevel import interlevel
 from threepu_torch.ops.knn import knn_group
 from threepu_torch.ops.normalize import normalize_point_batch_cl
+
+
+#: what a capture holds: ``{"level_<l>.<name>": tensor}``
+Capture = Dict[str, torch.Tensor]
+
+
+def exponential_distance(points: torch.Tensor, knn_points: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``points (B, N, C)``, ``knn_points (B, N, K, C)`` -> ``(d, w)``,
+    both ``(B, N, K)`` and without gradient: squared distances and the
+    interlevel skip's weights ``exp(-d / (h / 2))``, ``h`` the mean over
+    the points of the min over ``K`` (the plain form of what
+    :func:`~threepu_torch.ops.interlevel.interlevel` computes)."""
+    diff = points[..., :, None, :] - knn_points
+    d = torch.sum(diff * diff, dim=-1).detach()
+    h = torch.mean(torch.amin(d, dim=-1, keepdim=True), dim=-2, keepdim=True)
+    return d, torch.exp(-d / (h / 2.0))
 
 
 def gen_1d_grid(num: int) -> np.ndarray:
@@ -40,11 +65,36 @@ def gen_1d_grid(num: int) -> np.ndarray:
     return np.linspace(-0.2, 0.2, num, dtype=np.float32).reshape(num, 1)
 
 
+def _square_grid(grid_size: int, extent: float) -> np.ndarray:
+    """``(grid_size**2, 2)`` grid of linspace(-extent, extent) on both
+    axes, the first axis slowest (``meshgrid(..., indexing="ij")``)."""
+    x = np.linspace(-extent, extent, grid_size, dtype=np.float32)
+    gx, gy = np.meshgrid(x, x, indexing="ij")
+    return np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)
+
+
+def gen_grid(grid_size: int) -> np.ndarray:
+    """``(grid_size**2, 2)`` code grid, linspace(-0.2, 0.2) on both axes."""
+    return _square_grid(grid_size, 0.2)
+
+
+def level_code(step_ratio: int) -> np.ndarray:
+    """A Level's code points: the 1-D column below ``step_ratio`` 4, else
+    the 2-D grid of ``round(sqrt(step_ratio))**2`` points (the JAX
+    package's fix of the reference, whose grid holds that count squared
+    and breaks its own cascade)."""
+    if step_ratio < 4:
+        return gen_1d_grid(step_ratio)
+    expansion = round(math.sqrt(step_ratio)) ** 2
+    return gen_grid(round(math.sqrt(expansion)))
+
+
 class Level(nn.Module):
     """One ``step_ratio``-times upsampling unit.
 
     Channels with growth 12, dense_n 3: 3 -> 24 -> 84 -> 144 -> 204 ->
-    264, then the code-grid expansion and the coordinate regressor
+    264, then the code-grid expansion (:func:`level_code`: 1 code
+    channel below ``step_ratio`` 4, else 2) and the coordinate regressor
     128 -> 128 -> 64 -> 3 with a residual skip.
     """
 
@@ -52,10 +102,7 @@ class Level(nn.Module):
                  knn: int = 16, fm_knn: int = 5, step_ratio: int = 2):
         super().__init__()
         self.fm_knn = fm_knn
-        if step_ratio >= 4:
-            raise NotImplementedError("only the 1-D code grid (step_ratio "
-                                      "< 4) is ported")
-        code = gen_1d_grid(step_ratio)
+        code = level_code(step_ratio)
         self.register_buffer("code", torch.from_numpy(code),
                              persistent=False)
         block = 24 + dense_n * growth_rate      # channels an edge conv adds
@@ -78,7 +125,8 @@ class Level(nn.Module):
                                                 torch.Tensor]] = None,
                 prev_group: int = 1,
                 prev_dup: Optional[torch.Tensor] = None,
-                chain_kernel: bool = False
+                chain_kernel: bool = False,
+                capture: Optional[Capture] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``xyz``/``xyz_normalized (B, N, 3)``: the input points, raw
         and normalized.  ``previous_level4 = (prev_xyz (B / prev_group,
@@ -87,7 +135,10 @@ class Level(nn.Module):
         shares one previous set; ``prev_dup (B / prev_group, M)`` marks
         previous points that must never be picked (computed here with
         :func:`duplicate_mask` when not given).  ``chain_kernel`` goes
-        to the four edge convs (forward-only; eval paths).
+        to the four edge convs (forward-only; eval paths).  ``capture``
+        receives ``xyz_in`` (``xyz``), ``layer_0`` ... ``layer_4`` (the
+        features after each block) and ``nnIdx_layer_0`` ...
+        ``nnIdx_layer_3`` (each edge conv's kNN indices).
 
         Returns ``(upsampled xyz (B, N*r, 3) in the normalized frame,
         point features (B, N, C))``.
@@ -97,12 +148,15 @@ class Level(nn.Module):
         # serves every feature-space kNN of the level
         dup = duplicate_mask(xyz_normalized)
         x = self.layer0(xyz_normalized)
-        y, _ = self.layer1(x, dup, chain_kernel)
-        x = torch.cat([y, x], dim=-1)
-        for i in (2, 3, 4):
-            prep = getattr(self, f"layer{i}_prep")
-            y, _ = getattr(self, f"layer{i}")(prep(x), dup, chain_kernel)
+        if capture is not None:
+            capture.update(xyz_in=xyz, layer_0=x)
+        for i in (1, 2, 3, 4):
+            inp = x if i == 1 else getattr(self, f"layer{i}_prep")(x)
+            y, idx = getattr(self, f"layer{i}")(inp, dup, chain_kernel)
             x = torch.cat([y, x], dim=-1)
+            if capture is not None:
+                capture[f"layer_{i}"] = x
+                capture[f"nnIdx_layer_{i - 1}"] = idx
 
         if previous_level4 is not None and self.fm_knn > 0:
             prev_xyz, prev_feat = previous_level4
@@ -209,12 +263,13 @@ class Net(nn.Module):
         return patch, gt_patch
 
     @torch.no_grad()
-    def upsample(self, xyz: torch.Tensor,
-                 ratio: Optional[int] = None) -> torch.Tensor:
+    def upsample(self, xyz: torch.Tensor, ratio: Optional[int] = None,
+                 capture: Optional[Capture] = None) -> torch.Tensor:
         """Eval cascade: normalized patches ``(P, N, 3)`` ->
         ``(P, N*ratio, 3)`` in the same frame.  The edge convs take the
         fused chain kernel when :func:`edgeconv.enabled_for` says so,
-        read once per call."""
+        read once per call.  ``capture``, when given, receives every
+        level's intermediates (:class:`Level`) under ``"level_<l>."``."""
         ratio = ratio or self.max_up_ratio
         num_levels = int(math.log(ratio, self.step_ratio))
         p, num_point, _ = xyz.shape
@@ -222,17 +277,23 @@ class Net(nn.Module):
         dev = xyz.device
         chain_kernel = edgeconv.enabled_for(xyz)
 
+        def level(l, *args, **kw):
+            level_capture = None if capture is None else {}
+            out = self.levels[f"level_{l}"](*args, chain_kernel=chain_kernel,
+                                            capture=level_capture, **kw)
+            if capture is not None:
+                capture.update((f"level_{l}.{name}", t)
+                               for name, t in level_capture.items())
+            return out
+
         old_xyz = xyz
-        xyz, old_feats = self.levels["level_1"](xyz, xyz,
-                                                chain_kernel=chain_kernel)
+        xyz, old_feats = level(1, xyz, xyz)
         prev_invalid = None
         for l in range(2, num_levels + 1):
-            level = self.levels[f"level_{l}"]
             n_cur = xyz.shape[1]
             if n_cur <= max_np:
                 norm, centroid, radius = normalize_point_batch_cl(xyz)
-                new_xyz, feats = level(xyz, norm, (old_xyz, old_feats),
-                                       chain_kernel=chain_kernel)
+                new_xyz, feats = level(l, xyz, norm, (old_xyz, old_feats))
                 old_xyz, old_feats, prev_invalid = xyz, feats, None
                 xyz = new_xyz * radius + centroid
                 continue
@@ -245,9 +306,8 @@ class Net(nn.Module):
             prev_dup = duplicate_mask(old_xyz)
             if prev_invalid is not None:
                 prev_dup = prev_dup | prev_invalid
-            new_xyz, feats = level(flat, norm, (old_xyz, old_feats),
-                                   prev_group=n_sub, prev_dup=prev_dup,
-                                   chain_kernel=chain_kernel)
+            new_xyz, feats = level(l, flat, norm, (old_xyz, old_feats),
+                                   prev_group=n_sub, prev_dup=prev_dup)
             new_xyz = new_xyz * radius + centroid
             # merge the sub-patches of each top patch, then re-stitch by
             # FPS over the real sub-patches only
@@ -280,6 +340,84 @@ class Net(nn.Module):
         true_sub = torch.clamp((n_valid * 5) // k, 1, n_sub)
         seeds = gather_nd(xyz, fps(xyz.contiguous(), n_sub, mask))
         return knn_group(seeds, xyz, k, valid_mask=mask).neighbors, true_sub
+
+
+class AdaptiveLevel(nn.Module):
+    """Upsampling unit with a free output count
+    (``threepu/models/upsampler.py:486-558``; the reference's ``main.py``
+    never runs it).  Downsamples 48 -> 16 -> 1 points with
+    :class:`SampledDenseEdgeConv` to one global feature, then decodes
+    ``round(sqrt(target))**2`` points from a 2-D code grid in [-1, 1].
+
+    ``layer4`` takes ``knn + 1`` neighbours among the 16 points ``layer3``
+    leaves, so ``knn`` must stay below 16 (the reference's default 16
+    raises there, in the JAX package and the reference alike).
+    """
+
+    def __init__(self, dense_n: int = 3, growth_rate: int = 12,
+                 knn: int = 16, fm_knn: int = 5):
+        super().__init__()
+        self.fm_knn = fm_knn
+        block = 24 + dense_n * growth_rate
+        self.layer0 = DenseConv(3, 24)
+        self.layer1 = DenseEdgeConv(24, growth_rate, dense_n, knn)
+        feat = 24 + block
+        for i in (2, 3, 4):
+            setattr(self, f"layer{i}_prep", DenseConv(feat, 24, "relu", ndim=1))
+            setattr(self, f"layer{i}",
+                    SampledDenseEdgeConv(24, growth_rate, dense_n, knn))
+            feat += block
+        self.up_layer = nn.Sequential(OrderedDict(
+            up_layer1=DenseConv(feat + 2, 128, "relu"),
+            up_layer2=DenseConv(128, 128, "relu")))
+        self.fc_layer1 = DenseConv(128, 64, "relu")
+        self.fc_layer2 = DenseConv(64, 3)
+
+    @staticmethod
+    def gen_grid(grid_size: int) -> np.ndarray:
+        """``(grid_size**2, 2)`` code grid, linspace(-1, 1) on both axes."""
+        return _square_grid(grid_size, 1.0)
+
+    def interpolate(self, prev_xyz: torch.Tensor, xyz: torch.Tensor,
+                    prev_feat: torch.Tensor) -> torch.Tensor:
+        """Features at ``xyz (B, S, 3)`` from the ``fm_knn`` nearest of
+        ``prev_xyz`` (unique kNN): weights ``exp(-d / (h / 2))`` of the
+        spatial squared distance alone, ``h`` the mean nearest distance
+        plus 1e-5, normalized by ``sum(w + 1e-5)``; no gradient through
+        them."""
+        res = knn_group(xyz, prev_xyz, self.fm_knn, unique=True)
+        feats = batched_gather(prev_feat, res.idx)
+        diff = xyz[..., :, None, :] - res.neighbors
+        d = torch.sum(diff * diff, dim=-1).detach()
+        h = torch.mean(torch.amin(d, dim=-1, keepdim=True), dim=-2,
+                       keepdim=True) + 1e-5
+        w = torch.exp(-d / (h / 2.0))
+        w = w / torch.sum(w + 1e-5, dim=-1, keepdim=True)
+        return torch.sum(w[..., None] * feats, dim=-2)
+
+    def forward(self, xyz: torch.Tensor, target_n_point: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``xyz (B, N, 3)`` -> ``(points (B, round(sqrt(target))**2, 3)``
+        in ``xyz``'s frame, global features ``(B, 1, C))``."""
+        b = xyz.shape[0]
+        code = torch.from_numpy(self.gen_grid(round(math.sqrt(target_n_point)))
+                                ).to(device=xyz.device, dtype=xyz.dtype)
+        xyz_n, centroid, radius = normalize_point_batch_cl(xyz)
+        x = self.layer0(xyz_n)
+        y, _ = self.layer1(x)
+        x = torch.cat([y, x], dim=-1)
+        prev_xyz = xyz_n
+        for i, nsample in ((2, 48), (3, 16), (4, 1)):
+            prep = getattr(self, f"layer{i}_prep")
+            y, s_xyz, _ = getattr(self, f"layer{i}")(prep(x), nsample, prev_xyz)
+            x = torch.cat([y, self.interpolate(prev_xyz, s_xyz, x)], dim=-1)
+            prev_xyz = s_xyz
+        global_features = x                                   # (B, 1, C)
+        t = code.shape[0]
+        x = torch.cat([x.expand(b, t, x.shape[-1]), code[None].expand(b, t, 2)],
+                      dim=-1)
+        x = self.fc_layer2(self.fc_layer1(self.up_layer(x)))
+        return x * radius.detach() + centroid.detach(), global_features
 
 
 def load_net(weights: Optional[str] = None,

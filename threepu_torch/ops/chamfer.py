@@ -236,6 +236,13 @@ def nn_distance(xyz1: torch.Tensor, xyz2: torch.Tensor
     return _NNDistance.apply(xyz1.contiguous(), xyz2.contiguous())
 
 
+def nndistance(xyz1: torch.Tensor, xyz2: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """The reference's name for :func:`nn_distance`."""
+    return nn_distance(xyz1, xyz2)
+
+
 def self_nn_dist2(points: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
     """Squared distance from each point to its nearest OTHER point,
     ``(B, N)``: a masked min over row chunks of the distance matrix, so

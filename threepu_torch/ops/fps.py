@@ -15,6 +15,8 @@ is left.
   the cluster.
 - :func:`fps_hierarchical`: Morton-stratified grouped FPS, for the final
   re-stitch and for clouds above :data:`PALLAS_MAX_N` points.
+- :func:`fps_indices` and :func:`furthest_point_sample`: the JAX
+  package's (and the reference's) names and layouts over the same picks.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from threepu_torch._build import Kernel, check_cuda_tensor
+from threepu_torch.ops.gather import gather_nd
 
 _INIT_DIST = 1e10
 #: clouds above this many points take :func:`fps_hierarchical`, as the
@@ -153,6 +156,35 @@ def fps(points: torch.Tensor, m: int,
             points.device).multi_processor_count
         _launch(points, valid_mask, out, fps_plan(b, n, m, sms))
     return out
+
+
+def fps_indices(points: torch.Tensor, m: int,
+                valid_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``m`` picks of ``points (B, N, 3)`` as int32 ``(B, m)``: :func:`fps`
+    on float32 contiguous copies (the JAX package's ``fps_indices``, for
+    3-D points)."""
+    if valid_mask is not None:
+        valid_mask = valid_mask.to(torch.bool).contiguous()
+    return fps(points.to(torch.float32).contiguous(), m, valid_mask)
+
+
+def furthest_point_sample(xyz: torch.Tensor, npoint: int, NCHW: bool = True,
+                          valid_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's call: ``xyz (B, 3, N)`` (``NCHW``) or ``(B, N, 3)``
+    -> ``(idx (B, npoint) int32, the sampled points in the input's
+    layout)``, picked as the pipeline picks (:func:`_dispatch_fps`)."""
+    if xyz.dim() != 3:
+        raise ValueError(f"expected 3D tensor, got shape {tuple(xyz.shape)}")
+    pts = xyz.transpose(-1, -2) if NCHW else xyz
+    if pts.shape[-1] != 3:
+        raise ValueError("furthest sampling is implemented for 3D points")
+    pts = pts.to(torch.float32).contiguous()
+    if valid_mask is not None:
+        valid_mask = valid_mask.to(torch.bool).contiguous()
+    idx = _dispatch_fps(pts, npoint, valid_mask)
+    sampled = gather_nd(pts, idx)
+    return idx, sampled.transpose(-1, -2) if NCHW else sampled
 
 
 def _launch(points: torch.Tensor, valid_mask: torch.Tensor,

@@ -1,4 +1,8 @@
-"""Row gathers (port of ``threepu/ops/gather.py``), as plain indexing."""
+"""Row gathers (port of ``threepu/ops/gather.py``), as plain indexing.
+
+``torch.gather``'s gradient is the scatter-add of the reference's
+``gather_points`` backward (``index`` receives none).
+"""
 
 from __future__ import annotations
 
@@ -21,3 +25,10 @@ def gather_nd(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Channels-last gather: ``points (B, N, C)``, ``idx (B, M)`` ->
     ``(B, M, C)``."""
     return batched_gather(points, idx)
+
+
+def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The reference's call: ``features (B, C, N)``, integer ``idx (B, M)``
+    -> ``(B, C, M)``, ``out[b, c, i] = features[b, c, idx[b, i]]``."""
+    index = idx.long()[:, None, :].expand(-1, features.shape[1], -1)
+    return torch.gather(features, 2, index)

@@ -80,3 +80,16 @@ def knn_group(query: torch.Tensor, points: torch.Tensor, k: int, *,
     dist2, idx = exact_select(d, k)
     nbrs = batched_gather(points, idx) if with_neighbors else None
     return KnnResult(neighbors=nbrs, idx=idx, dist2=dist2)
+
+
+def group_knn(k: int, query: torch.Tensor, points: torch.Tensor,
+              unique: bool = True, NCHW: bool = True):
+    """The reference's call: with ``NCHW`` the inputs are ``(B, C, M)`` /
+    ``(B, C, N)`` and the neighbours come back ``(B, C, M, k)``, else
+    channels-last ``(B, M, k, C)``; ``idx`` and ``dist2`` are ``(B, M,
+    k)`` either way.  Returns ``(neighbours, idx, dist2)``."""
+    if NCHW:
+        query, points = query.transpose(-1, -2), points.transpose(-1, -2)
+    res = knn_group(query, points, k, unique=unique)
+    nbrs = res.neighbors.movedim(-1, -3) if NCHW else res.neighbors
+    return nbrs, res.idx, res.dist2

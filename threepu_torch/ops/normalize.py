@@ -18,3 +18,13 @@ def normalize_point_batch_cl(pc: torch.Tensor
     radius = torch.amax(torch.sqrt(torch.sum(pc * pc, dim=-1, keepdim=True)),
                         dim=-2, keepdim=True)
     return pc / radius, centroid, radius
+
+
+def normalize_point_batch(pc: torch.Tensor, NCHW: bool = True):
+    """The reference's call: ``pc (B, 3, N)`` (``NCHW``) or ``(B, N, 3)``
+    -> ``(normalized, centroid, furthest distance)``, the first two in the
+    input's layout, the distance ``(B, 1, 1)``."""
+    if not NCHW:
+        return normalize_point_batch_cl(pc)
+    out, centroid, radius = normalize_point_batch_cl(pc.transpose(-1, -2))
+    return out.transpose(-1, -2), centroid.transpose(-1, -2), radius
