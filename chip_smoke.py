@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``threepu_torch``) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (``threepu_torch``) on one GPU or more.
 
     python3 chip_smoke.py [--profile STEPS] [--profile-shapes SHAPES]
 
@@ -194,9 +194,49 @@ no result line:
       5000- and the 80,000-point shapes equals ``np.loadtxt`` bit for bit;
       both times printed.
 
+8. The sharded paths (``threepu_torch.parallel``) over
+   ``torch.distributed`` with ``nccl``, each rank a process started by
+   ``parallel.launch.spawn`` after phase 2's build (one rank a card):
+
+   a. World size 1: phase 4b's shape through ``upsample_shape(...,
+      mesh=...)``: bit for bit phase 4b's output, select 96, FPS 38,
+      interlevel 18 launches and exactly one collective, the merge's
+      all-gather; the warm s/shape beside 4b's.  Then once with the
+      edge-conv kernel on: 96 edge-conv launches, one all-gather and both
+      Chamfer bands of (4b).
+   b. World size 1: phase 5a's step at ratios 2 and 16 (the trained
+      weights with their Adam state, the fixture's batches and re-patch
+      seeds) through ``make_sharded_train_step``: the loss equal to
+      ``train_step``'s from the same state, the parameters within twice
+      the largest difference between 3 serial steps (the backward's
+      atomics), one all-reduce, the kernels launched (Chamfer once); the
+      witness (the step as 8d's ranks run it, each block of rows through
+      the forward and backward in turn on this card, the gradients
+      averaged) printed beside it; the warm ms/step at ratio 16 beside the
+      serial step's in the same rank (before and after) and 5c's.
+   c. World size 1: ``train_loop`` with ``TrainConfig(mesh=...)`` on phase
+      6's file, resumed from ``WEIGHTS``: 12 steps of 6b's checked
+      configuration (each step's launches; no host sync on a step that
+      does not log; one broadcast, one all-reduce a step, one all-gather a
+      log step), 6b's timed configuration with the mesh and, before and
+      after, without it (the warm ms/step of each beside 6b's), and one
+      epoch of 300 steps of batch 1 whose checkpoint reads back through
+      ``io.checkpoint`` bit for bit.
+   d. Where 2 or more cards are visible, (a) and (b) at world size 4
+      (2 with 2 or 3 cards): each rank's output within the float-noise
+      control of (4b) of world 1's (Chamfer), one all-gather.  Each
+      step, one all-reduce, against the witness: the loss within 1e-5
+      (relative), the reduced gradients within phase 5b's band and the
+      parameters within twice the serial pairs' difference of (b).
+      Against world 1's step: at ratio 2 the same loss and parameter
+      bands, all gradients within JAX's float-noise control and each
+      within 0.1; at ratio 16, a chaotic step whose GEMMs round
+      otherwise at 4 rows a card, loss and gradients within JAX's
+      float-noise control.  On one card a line says that 8d did not run.
+
 The last two lines of standard output are one JSON object per kernel
-(launches on the checked runs of phases 4b, 4c, 5b, 6b, 6d and 7b-7e, by
-path, error, times, bound) and ``{"ok": true, "device": {...}}``.
+(launches on the checked runs of phases 4b, 4c, 5b, 6b, 6d, 7b-7e and
+8a-8c, by path, error, times, bound) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -324,6 +364,9 @@ FRESH_STEPS, RESUME_STEPS, CLI_STAGE_STEPS = 2, 3, 40
 #: 1.06x and 1.74x their difference on an H100, so one pair alone would
 #: let chance decide
 RESUME_CONTROL_RUNS = 3
+#: phase 8d's world size where that many cards are visible, else 2 (the
+#: train batch of 16 divides by neither 3 nor 5-7)
+MAX_WORLD = 4
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -939,13 +982,13 @@ def run_shape(net, fx, **kwargs):
     return out
 
 
-def warm_shape_s(net, fx) -> tuple:
+def warm_shape_s(net, fx, **kwargs) -> tuple:
     """``(best, times)`` of three warm :func:`run_shape` runs, in
     seconds."""
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        run_shape(net, fx)
+        run_shape(net, fx, **kwargs)
         times.append(time.perf_counter() - t0)
     return min(times), times
 
@@ -963,8 +1006,8 @@ def checked_launches(kernels: dict, required, what: str) -> dict:
 
 def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
     """Phase 4b: the 16x pipeline on held-out shape 0; returns the
-    launch count of each kernel in the checked run, and the warm seconds
-    per shape."""
+    launch count of each kernel in the checked run, the warm seconds per
+    shape and the checked run's output."""
     t0 = time.perf_counter()
     run_shape(net, fx)                               # first run: warm-up
     first_s = time.perf_counter() - t0
@@ -983,7 +1026,7 @@ def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
     print(f"16x {fx['input'].shape[0]} -> {n_out}: first run {first_s:.3f} s, "
           f"warm s/shape {best:.4f} (runs {[round(t, 4) for t in times]}), "
           f"{n_out / best:.1f} points/s [{card}]", flush=True)
-    return launches, best
+    return launches, best, out
 
 
 def file_to_file(net, fx, card: str, kernels: dict, off_s: float) -> dict:
@@ -1511,35 +1554,50 @@ def check_data(path: str, dev, card: str) -> None:
                                  "the CPU's")
 
 
+def loop_step_patch(wrap, sharded: bool = False):
+    """A patch that hands the step function ``train_loop`` calls to
+    ``wrap`` and calls what it returns instead: ``train.train_step``, or
+    with ``sharded`` each step that ``parallel.make_sharded_train_step``
+    makes (a loop with ``TrainConfig.mesh``)."""
+    if sharded:
+        import threepu_torch.parallel as par_mod
+        make = par_mod.make_sharded_train_step
+        return mock.patch.object(
+            par_mod, "make_sharded_train_step",
+            lambda net, opt, mesh: wrap(make(net, opt, mesh)))
+    import threepu_torch.train.loop as loop_mod
+    return mock.patch.object(loop_mod, "train_step",
+                             wrap(loop_mod.train_step))
+
+
 @contextlib.contextmanager
-def watched_steps(kernels: dict, syncs: bool = False):
-    """Wraps the loop's ``train_step``; yields the list of its calls, each
-    ``{"ratio", "loss" (on the device), "launches" (per kernel), "t0"}``.
-    With ``syncs``, each call also counts the host syncs that
-    ``torch.cuda.set_sync_debug_mode`` reports from its start to the next
-    call's (the step, then the loop's bookkeeping and the batch it
-    issues)."""
+def watched_steps(kernels: dict, syncs: bool = False, sharded: bool = False):
+    """Wraps the loop's step function (:func:`loop_step_patch`); yields
+    the list of its calls, each ``{"ratio", "loss" (on the device),
+    "launches" (per kernel), "t0"}``.  With ``syncs``, each call also
+    counts the host syncs that ``torch.cuda.set_sync_debug_mode`` reports
+    from its start to the next call's (the step, then the loop's
+    bookkeeping and the batch it issues)."""
     import warnings
     import torch
-    import threepu_torch.train.loop as loop_mod
     calls = []
-    step_fn = loop_mod.train_step
 
-    def watched(net, opt, inp, gt, ratio, **kw):
-        calls.append(dict(ratio=ratio, syncs=0, t0=time.perf_counter()))
-        start = {n: k.launches for n, k in kernels.items()}
-        out = step_fn(net, opt, inp, gt, ratio, **kw)
-        calls[-1].update(loss=out[0] if kw.get("with_pred") else out,
-                         launches={n: k.launches - start[n]
-                                   for n, k in kernels.items()})
-        return out
+    def wrap(step_fn):
+        def watched(net, opt, inp, gt, ratio, **kw):
+            calls.append(dict(ratio=ratio, syncs=0, t0=time.perf_counter()))
+            start = {n: k.launches for n, k in kernels.items()}
+            out = step_fn(net, opt, inp, gt, ratio, **kw)
+            calls[-1].update(loss=out[0] if kw.get("with_pred") else out,
+                             launches={n: k.launches - start[n]
+                                       for n, k in kernels.items()})
+            return out
+        return watched
 
     def on_warning(message, *args, **kwargs):
         if "synchroniz" in str(message) and calls:
             calls[-1]["syncs"] += 1
 
-    with warnings.catch_warnings(), \
-            mock.patch.object(loop_mod, "train_step", watched):
+    with warnings.catch_warnings(), loop_step_patch(wrap, sharded):
         warnings.simplefilter("always")
         warnings.showwarning = on_warning
         if syncs:
@@ -1716,12 +1774,13 @@ def check_fresh_ratio2(cfg, dev, card: str) -> None:
                              "differ")
 
 
-def time_loop(cfg, start: int, card: str, bare_ms: float) -> None:
+def time_loop(cfg, start: int, card: str, bare_ms: float) -> float:
     """Phase 6b, timing: the loop resumed at ratio 16 only, threshold off
     (as phase 5c's bare step), with the default ``log_steps``: the warm
     ms/step over ``LOOP_TIMED`` steps after ``LOOP_WARM``, each end read
     after a device sync, then ``LOOP_PROFILED`` steps under
-    ``torch.profiler``: the device's idle share of a loop step."""
+    ``torch.profiler``: the device's idle share of a loop step.  Returns
+    the warm ms/step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import threepu_torch.train.loop as loop_mod
@@ -1758,6 +1817,7 @@ def time_loop(cfg, start: int, card: str, bare_ms: float) -> None:
           f"{len(intervals) / LOOP_PROFILED:.0f} device ops/step, idle share "
           f"{1 - busy_ms / step_ms:.4f} of the unprofiled step [{card}]",
           flush=True)
+    return step_ms
 
 
 def check_resume(cfg, start: int, tmp: str, card: str) -> None:
@@ -1854,10 +1914,11 @@ def check_cli_train(path: str, tmp: str, fx, card: str,
     return launches, test_launches
 
 
-def file_training(fx, card: str, kernels: dict, bare_ms: float) -> dict:
+def file_training(fx, card: str, kernels: dict, bare_ms: float) -> tuple:
     """Phase 6: training from a file (6a-6d); returns the launch count of
     each kernel on the paths it drives: the loop (6b), the command line's
-    training run and its two test runs (6d)."""
+    training run and its two test runs (6d); and the loop's warm
+    ms/step."""
     import tempfile
     from threepu_torch.device import require_cuda
     dev = require_cuda()
@@ -1869,10 +1930,11 @@ def file_training(fx, card: str, kernels: dict, bare_ms: float) -> dict:
         check_restore(cfg, start, tmp, card)
         loop = check_loop(cfg, start, card, kernels)
         check_fresh_ratio2(cfg, dev, card)
-        time_loop(cfg, start, card, bare_ms)
+        loop_ms = time_loop(cfg, start, card, bare_ms)
         check_resume(cfg, start, tmp, card)
         cli_train, cli_test = check_cli_train(path, tmp, fx, card, kernels)
-    return {"loop": loop, "cli_train": cli_train, "cli_test": cli_test}
+    return {"loop": loop, "cli_train": cli_train, "cli_test": cli_test}, \
+        loop_ms
 
 # ------------------------------------------------------------ phase 7
 def surface_state(sfx, prefix: str) -> dict:
@@ -2341,6 +2403,527 @@ def surface(fx, card: str, kernels: dict, off_s: float,
     return paths
 
 
+# ------------------------------------------------------------ phase 8
+def rank_kernels() -> dict:
+    """The kernels' wrappers in this process, by name (each process, a
+    rank among them, counts its own launches)."""
+    import threepu_torch.ops.chamfer as ch_mod
+    import threepu_torch.ops.edgeconv as ec_mod
+    import threepu_torch.ops.fps as fps_mod
+    import threepu_torch.ops.interlevel as il_mod
+    import threepu_torch.ops.select as sel_mod
+    return {"select": sel_mod.KERNEL, "fps": fps_mod.KERNEL,
+            "interlevel": il_mod.KERNEL, "chamfer": ch_mod.KERNEL,
+            "edgeconv": ec_mod.KERNEL}
+
+
+@contextlib.contextmanager
+def counted(mesh, kernels: dict):
+    """Sets the mesh's collective counts and every kernel's launches to 0;
+    yields a dict that holds both on exit (``counts``, ``launches``)."""
+    mesh.counts.clear()
+    for k in kernels.values():
+        k.launches = 0
+    got = {}
+    yield got
+    got.update(counts=dict(mesh.counts),
+               launches={n: k.launches for n, k in kernels.items()})
+
+
+def params_of(net) -> dict:
+    return {n: p.detach().cpu().numpy().copy()
+            for n, p in net.named_parameters()}
+
+
+def rank_eval(mesh, fx) -> dict:
+    """Phase 8a in a rank: the fixture's shape through ``upsample_shape``
+    with the mesh (phase 4b's configuration): a warm-up run, the checked
+    run, three warm runs, then one run with the edge-conv kernel on."""
+    import threepu_torch.ops.edgeconv as ec_mod
+    from threepu_torch.models import load_net
+    kernels = rank_kernels()
+    net = load_net(WEIGHTS, device=mesh.device, **NET).eval()
+    t0 = time.perf_counter()
+    run_shape(net, fx, mesh=mesh)
+    first_s = time.perf_counter() - t0
+    with counted(mesh, kernels) as off:
+        out = run_shape(net, fx, mesh=mesh)
+    best, times = warm_shape_s(net, fx, mesh=mesh)
+    with counted(mesh, kernels) as on, \
+            mock.patch.object(ec_mod, "ENABLED", True):
+        out_on = run_shape(net, fx, mesh=mesh)
+    return dict(out=out, off=off, first_s=first_s, best=best, times=times,
+                out_on=out_on, on=on)
+
+
+def witness_step(net, opt, x, gt, ratio: int, seeds, blocks: int) -> tuple:
+    """The sharded step at world size ``blocks`` run on one card: each
+    block of contiguous rows (a rank's) through ``train_loss`` and its
+    backward in turn, the blocks' gradients (zeros where none) and losses
+    summed in block order and divided by ``blocks``, then the clipped
+    Adam step.  Written apart from ``parallel.train`` on purpose.  Returns
+    ``(loss, grads)``."""
+    import torch
+    from threepu_torch.train.model import train_loss
+    b = x.shape[0] // blocks
+    named = list(net.named_parameters())
+    grads, loss = {n: torch.zeros_like(p) for n, p in named}, 0.0
+    for r in range(blocks):
+        rows = slice(r * b, (r + 1) * b)
+        opt.zero_grad(set_to_none=True)
+        weighted, cd, _, _ = train_loss(net, x[rows], gt[rows], ratio,
+                                        seed_idx=[s[rows] for s in seeds])
+        weighted.backward()
+        for n, p in named:
+            if p.grad is not None:
+                grads[n] += p.grad
+        loss += float(cd.detach())
+    for n, p in named:
+        p.grad = grads[n] / blocks
+    opt.step()
+    return loss / blocks, {n: p.grad.detach().cpu().numpy().copy()
+                           for n, p in named}
+
+
+def rank_train(mesh, serial_runs: int, blocks: int = 0) -> dict:
+    """Phase 8b in a rank: at ratios 2 and 16, phase 5a's step (16 x 312,
+    the trained weights with their Adam state, the fixture's batch and
+    re-patch seeds) ``serial_runs`` times through ``train_step``, once
+    through :func:`witness_step` over ``blocks`` blocks (where ``blocks``
+    is not 0) and once through ``make_sharded_train_step``, each from the
+    same state; then the warm ms/step at ratio 16 of the sharded step
+    and, before and after, of the serial one in this process (median of
+    10 after 2, each ending in a device sync, the seeds drawn from a
+    generator).  Returns ``{ratio: {loss, params, grads (the step's
+    reduced gradients), serial: [(loss, params)], witness: (loss, params,
+    grads) or None, counts, launches}, "times", "serial_times"}``.
+    """
+    import torch
+    from threepu_torch.io import load_opt_state
+    from threepu_torch.models import load_net
+    from threepu_torch.parallel import make_sharded_train_step
+    from threepu_torch.train import make_optimizer, train_step
+    tfx = np.load(TRAIN_FIXTURE)
+    dev = mesh.device
+
+    def arr(key):
+        return torch.from_numpy(tfx[key]).to(dev)
+
+    def fresh():
+        net = load_net(WEIGHTS, device=dev, **NET)
+        opt = make_optimizer(net.parameters(), TRAIN_LR)
+        if load_opt_state(WEIGHTS, net, opt) is None:
+            raise AssertionError("8b: WEIGHTS holds no Adam state")
+        return net, opt
+
+    res = {}
+    for ratio in (2, 16):
+        x, gt = arr(f"input_{ratio}"), arr(f"gt_{ratio}")
+        seeds = list(arr(f"repatch_{ratio}"))
+        serial = []
+        for _ in range(serial_runs):
+            net, opt = fresh()
+            loss = float(train_step(net, opt, x, gt, ratio, seed_idx=seeds))
+            serial.append((loss, params_of(net)))
+        witness = None
+        if blocks:
+            net, opt = fresh()
+            loss, grads = witness_step(net, opt, x, gt, ratio, seeds, blocks)
+            witness = (loss, params_of(net), grads)
+        net, opt = fresh()
+        step = make_sharded_train_step(net, opt, mesh)
+        with counted(mesh, rank_kernels()) as got:
+            loss = step(net, opt, x, gt, ratio, seed_idx=seeds)
+        res[ratio] = dict(loss=float(loss), params=params_of(net),
+                          grads={n: p.grad.detach().cpu().numpy().copy()
+                                 for n, p in net.named_parameters()},
+                          serial=serial, witness=witness, **got)
+
+    def times(step_fn, net, opt):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        out = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            step_fn(net, opt, x, gt, 16, generator=gen)
+            torch.cuda.synchronize()
+            if i >= 2:
+                out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    # the serial step in this process before and after: the rank's host
+    # apart from what the sharded step adds
+    serial_net, serial_opt = fresh()
+    res["serial_times"] = times(train_step, serial_net, serial_opt)
+    res["times"] = times(step, net, opt)
+    res["serial_times"] += times(train_step, serial_net, serial_opt)
+    return res
+
+
+def rank_loop(mesh, path: str, tmp: str) -> dict:
+    """Phase 8c in a rank: ``train_loop`` with ``TrainConfig(mesh=...)``
+    on phase 6's file, resumed from ``WEIGHTS``: ``LOOP_WARM +
+    LOOP_TIMED`` steps of phase 6b's checked configuration (ratios 2-16,
+    threshold on, a log step every 5) with each step's launches and host
+    syncs; the same number of steps at ratio 16 only (phase 6b's timed
+    configuration) with the warm ms/step over the last ``LOOP_TIMED``;
+    then one whole epoch of a fresh net (300 steps of batch 1 at ratio 2)
+    and its checkpoint, read back through ``io.checkpoint``."""
+    import torch
+    from threepu_torch.io import load_checkpoint
+    from threepu_torch.train import TrainConfig, train_loop
+    start = int(np.load(WEIGHTS)["step"])
+    steps = LOOP_WARM + LOOP_TIMED
+    kernels = rank_kernels()
+    logged = []
+
+    def log_fn(step, ratio, loss, state, batch, pred=None, gt_out=None,
+               error=None):
+        logged.append((step, None if pred is None else tuple(pred.shape)))
+
+    cfg = loop_config(path, tmp, mesh=mesh)
+    mesh.counts.clear()
+    with watched_steps(kernels, syncs=True, sharded=True) as calls:
+        _, error_log = train_loop(cfg, max_steps=start + steps, log_fn=log_fn)
+    counts = dict(mesh.counts)
+    out = dict(ratios=[c["ratio"] for c in calls],
+               syncs=[c["syncs"] for c in calls],
+               launches=[c["launches"] for c in calls],
+               losses=torch.stack([c["loss"] for c in calls]).cpu().numpy(),
+               error_log=dict(error_log), logged=logged, counts=counts)
+
+    def loop_ms(mesh_or_none) -> tuple:
+        ratios, marks = [], []
+
+        def wrap(step_fn):
+            def timed(net, opt, inp, gt, ratio, **kw):
+                if len(ratios) in (LOOP_WARM, steps):
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                ratios.append(ratio)
+                return step_fn(net, opt, inp, gt, ratio, **kw)
+            return timed
+
+        timed_cfg = dataclasses.replace(
+            cfg, stage_steps=TIMING_STAGE_STEPS,
+            log_steps=TrainConfig.log_steps, mesh=mesh_or_none)
+        with loop_step_patch(wrap, sharded=mesh_or_none is not None):
+            train_loop(timed_cfg, max_steps=start + steps + 1,
+                       device=mesh.device)
+        return (marks[1] - marks[0]) * 1e3 / LOOP_TIMED, set(ratios)
+
+    # the serial loop in this process before and after, as in rank_train
+    serial_ms, serial_ratios = loop_ms(None)
+    out["step_ms"], ratios = loop_ms(mesh)
+    out["serial_ms"] = [serial_ms, loop_ms(None)[0]]
+    out["timed_ratios"] = sorted(ratios | serial_ratios)
+
+    model_dir = os.path.join(tmp, f"mesh_rank{mesh.rank}")
+    epoch_cfg = loop_config(path, tmp, mesh=mesh, ckpt=None, batch_size=1,
+                            stage_steps=10 ** 6, max_epoch=1, ckpt_epochs=1,
+                            model_dir=model_dir)
+    t0 = time.perf_counter()
+    state, _ = train_loop(epoch_cfg)
+    out["epoch_s"] = time.perf_counter() - t0
+    out["files"] = sorted(os.listdir(model_dir)) \
+        if os.path.isdir(model_dir) else []
+    out["read_back"] = False
+    if out["files"] == ["model_1.npz"]:
+        restored, step = load_checkpoint(
+            os.path.join(model_dir, "model_1.npz"), state.net)
+        mine = state.net.state_dict()
+        out["read_back"] = step == state.step and all(
+            torch.equal(restored[k].to(mine[k].device), mine[k])
+            for k in mine)
+    out["epoch_step"] = state.step
+    return out
+
+
+def phase8_rank(mesh, parts, path: str, tmp: str, blocks: int = 0) -> dict:
+    """The parts of phase 8 that run in each rank: ``"eval"`` (8a),
+    ``"train"`` (8b, with 3 serial runs and the witness over ``blocks``
+    blocks at world size 1) and ``"loop"`` (8c)."""
+    fx = np.load(FIXTURE)
+    out = {"rank": mesh.rank, "size": mesh.size}
+    if "eval" in parts:
+        out["eval"] = rank_eval(mesh, fx)
+    if "train" in parts:
+        out["train"] = rank_train(
+            mesh, RESUME_CONTROL_RUNS if mesh.size == 1 else 0,
+            blocks if mesh.size == 1 else 0)
+    if "loop" in parts:
+        out["loop"] = rank_loop(mesh, path, tmp)
+    return out
+
+
+def max_param_diff(a: dict, b: dict) -> float:
+    return max(float(np.max(np.abs(a[n] - b[n]))) for n in a)
+
+
+def check_sharded_eval(r: dict, fx, serial_out, off_s: float, card: str,
+                       dev) -> None:
+    """Phase 8a's checks of a world-size-1 rank: bit for bit phase 4b's
+    output, 4b's launches and one all-gather; with the edge-conv kernel
+    on, 96 edge-conv launches, one all-gather and both Chamfer bands."""
+    ev = r["eval"]
+    diff = int(np.sum(np.any(ev["out"] != serial_out, axis=-1))) \
+        if ev["out"].shape == serial_out.shape else -1
+    print(f"8a sharded 16x, world size 1 (nccl): collectives "
+          f"{ev['off']['counts']}, launches {ev['off']['launches']}; rows "
+          f"differing from phase 4b's output: {diff}; first run "
+          f"{ev['first_s']:.3f} s, warm s/shape {ev['best']:.4f} (runs "
+          f"{[round(t, 4) for t in ev['times']]}) beside phase 4b's "
+          f"{off_s:.4f}; edge-conv kernel on: collectives "
+          f"{ev['on']['counts']}, launches {ev['on']['launches']} [{card}]",
+          flush=True)
+    if diff != 0:
+        raise AssertionError("8a: the sharded output is not phase 4b's")
+    for got in (ev["off"], ev["on"]):
+        if got["counts"] != {"all_gather": 1}:
+            raise AssertionError(f"8a: a shape ran {got['counts']}")
+    for name, want in EVAL_LAUNCHES.items():
+        if ev["off"]["launches"][name] != want:
+            raise AssertionError(f"8a launched {name} "
+                                 f"{ev['off']['launches'][name]} times, not "
+                                 f"{want}")
+    if ev["on"]["launches"]["edgeconv"] != EDGECONV_LAUNCHES:
+        raise AssertionError("8a: the edge-conv kernel did not run 96 times")
+    check_output(ev["out_on"], fx, dev, "8a sharded 16x, edge-conv kernel on")
+
+
+def serial_control(st: dict) -> float:
+    """Twice the largest parameter difference between two of a ratio's
+    serial steps from one state (the backward's atomics): phase 6c's
+    control for one step."""
+    import itertools
+    return 2 * max(max_param_diff(a, b) for (_, a), (_, b)
+                   in itertools.combinations(st["serial"], 2))
+
+
+def check_sharded_train(r: dict, bare_ms: float, card: str,
+                        blocks: int) -> None:
+    """Phase 8b's checks of a world-size-1 rank, at ratios 2 and 16: the
+    loss equal to the serial step's, the parameters within twice the
+    largest difference between two serial steps (the backward's
+    atomics), one all-reduce, select and Chamfer (once) launched and
+    interlevel once a level past the first.  The witness over ``blocks``
+    blocks is printed beside the full step: where the two differ, it is
+    by the blocks' shapes alone."""
+    import itertools
+    import torch
+    tr = r["train"]
+    for ratio in (2, 16):
+        st = tr[ratio]
+        serial_losses = [loss for loss, _ in st["serial"]]
+        pairs = [max_param_diff(a, b) for (_, a), (_, b)
+                 in itertools.combinations(st["serial"], 2)]
+        gap = max_param_diff(st["params"], st["serial"][0][1])
+        print(f"8b sharded train step, ratio {ratio}, world size 1 (nccl): "
+              f"loss {st['loss']!r}, serial {serial_losses}; largest "
+              f"parameter difference from a serial step {gap:.3e}, between "
+              f"serial steps {[f'{d:.3e}' for d in pairs]}; collectives "
+              f"{st['counts']}, launches {st['launches']} [{card}]",
+              flush=True)
+        if st["witness"] is not None:
+            w_loss, w_params, w_grads = st["witness"]
+            ws = compare_grads(
+                w_loss, {n: torch.from_numpy(g) for n, g in w_grads.items()},
+                st["loss"], {n: torch.from_numpy(g)
+                             for n, g in st["grads"].items()})
+            print(f"8b witness, ratio {ratio}: the step as {blocks} ranks "
+                  f"would run it, on this card, from the full step: loss "
+                  f"rel err {ws['loss_err']:.3e}, gradients rel L2 "
+                  f"{ws['grad_err']:.3e}, worst tensor {ws['worst_err']:.3e} "
+                  f"({ws['worst']}), largest parameter difference "
+                  f"{max_param_diff(w_params, st['params']):.3e} [{card}]",
+                  flush=True)
+        if any(loss != st["loss"] for loss in serial_losses):
+            raise AssertionError("8b: the sharded loss is not the serial one")
+        if not gap <= serial_control(st):
+            raise AssertionError("8b: parameters outside twice their "
+                                 "control")
+        if st["counts"] != {"all_reduce": 1}:
+            raise AssertionError(f"8b: a step ran {st['counts']}")
+        got = st["launches"]
+        if got["select"] <= 0 or got["chamfer"] != 1 \
+                or got["interlevel"] != int(np.log2(ratio)) - 1:
+            raise AssertionError(f"8b: a ratio-{ratio} step launched {got}")
+    print(f"8b sharded train step, ratio 16: warm "
+          f"{np.median(tr['times']):.3f} ms/step (median of 10; "
+          f"{[round(t, 3) for t in tr['times']]}) beside the serial step in "
+          f"the same rank, before and after, "
+          f"{np.median(tr['serial_times'][:10]):.3f} / "
+          f"{np.median(tr['serial_times'][10:]):.3f}, and phase 5c's "
+          f"{bare_ms:.3f} [{card}]", flush=True)
+
+
+def check_across_cards(ranks: list, r: dict, fx, card: str, dev) -> None:
+    """Phase 8d's checks of each rank at world size N against world size
+    1's (``r``): the shape's output within phase 4b's float-noise control
+    (Chamfer) and one all-gather.  The step at ratios 2 and 16, one
+    all-reduce: against the witness (the step as N ranks run it, on one
+    card), the loss within 1e-5 (relative), the reduced gradients within
+    phase 5b's band for one set of decisions and the parameters within
+    twice the serial pairs' difference (8b); against world 1's step, at
+    ratio 2 the same loss and parameter bands, all gradients within JAX's
+    float-noise control and each tensor within 0.1, and at ratio 16 (N
+    rows a card run the GEMMs at other shapes, and that step is chaotic)
+    the loss and gradients within JAX's float-noise control."""
+    import torch
+    tfx = np.load(TRAIN_FIXTURE)
+    ctl = float(np.max(fx["jax_pert_cd"]))
+
+    def grads(g: dict) -> dict:
+        return {n: torch.from_numpy(v) for n, v in g.items()}
+
+    for rank in ranks:
+        o = torch.from_numpy(rank["eval"]["out"]).to(dev)
+        cd = chamfer(o, torch.from_numpy(r["eval"]["out"]).to(dev))
+        print(f"8d world size {rank['size']}, rank {rank['rank']}: chamfer to "
+              f"world 1's output {cd:.6e} (JAX against itself under 1e-6 "
+              f"input noise {ctl:.6e}); collectives "
+              f"{rank['eval']['off']['counts']}; warm s/shape "
+              f"{rank['eval']['best']:.4f} (world 1: "
+              f"{r['eval']['best']:.4f}); "
+              f"train {np.median(rank['train']['times']):.3f} ms/step (world "
+              f"1: {np.median(r['train']['times']):.3f}) [{card}]",
+              flush=True)
+        if cd > ctl or rank["eval"]["off"]["counts"] != {"all_gather": 1}:
+            raise AssertionError("8d: the sharded shape across cards")
+        for ratio in (2, 16):
+            got, want = rank["train"][ratio], r["train"][ratio]
+            w_loss, w_params, w_grads = want["witness"]
+            ws = compare_grads(got["loss"], grads(got["grads"]), w_loss,
+                               grads(w_grads))
+            st = compare_grads(got["loss"], grads(got["grads"]),
+                               want["loss"], grads(want["grads"]))
+            ctl_loss = float(np.max(tfx[f"control_loss_{ratio}"]))
+            ctl_grad = float(np.max(tfx[f"control_grad_{ratio}"]))
+            ctl_params = serial_control(want)
+            w_gap = max_param_diff(got["params"], w_params)
+            gap = max_param_diff(got["params"], want["params"])
+            print(f"8d world size {rank['size']}, rank {rank['rank']}, ratio "
+                  f"{ratio}: from the witness: loss rel err "
+                  f"{ws['loss_err']:.3e}, gradients rel L2 "
+                  f"{ws['grad_err']:.3e}, worst tensor {ws['worst_err']:.3e} "
+                  f"({ws['worst']}), largest parameter difference "
+                  f"{w_gap:.3e}; from world 1's step: loss rel err "
+                  f"{st['loss_err']:.3e} (JAX's control {ctl_loss:.3e}), "
+                  f"gradients rel L2 {st['grad_err']:.3e} (control "
+                  f"{ctl_grad:.3e}), worst tensor {st['worst_err']:.3e} "
+                  f"({st['worst']}), largest parameter difference "
+                  f"{gap:.3e}; twice the serial pairs' {ctl_params:.3e}; "
+                  f"collectives {got['counts']} [{card}]", flush=True)
+            if not (ws["loss_err"] <= PIN_LOSS_BAND
+                    and ws["grad_err"] <= PIN_GRAD_BAND
+                    and w_gap <= ctl_params):
+                raise AssertionError(f"8d: the ratio-{ratio} step across "
+                                     "cards is not the witness's")
+            if ratio == 2:
+                inside = (st["loss_err"] <= R2_LOSS_BAND
+                          and st["grad_err"] <= ctl_grad
+                          and st["worst_err"] <= R2_TENSOR_BAND
+                          and gap <= ctl_params)
+            else:
+                inside = (st["loss_err"] <= ctl_loss
+                          and st["grad_err"] <= ctl_grad)
+            if not inside:
+                raise AssertionError(f"8d: the ratio-{ratio} step across "
+                                     "cards is outside its bands")
+            if got["counts"] != {"all_reduce": 1}:
+                raise AssertionError(f"8d: a step ran {got['counts']}")
+
+
+def check_sharded_loop(r: dict, loop_ms: float, card: str) -> None:
+    """Phase 8c's checks: every step launched select, interlevel a level
+    past the first and Chamfer once, no host sync on a step that does not
+    log, the losses finite, the timed run at ratio 16 only, and one
+    checkpoint that reads back."""
+    lp = r["loop"]
+    start = int(np.load(WEIGHTS)["step"])
+    n = len(lp["ratios"])
+    log_at = [(start + i + 1) % LOOP_LOG_STEPS == 0 or i == n - 1
+              for i in range(n)]
+    print(f"8c train_loop with a mesh, world size 1 (nccl), {n} steps from "
+          f"step {start}: ratios {lp['ratios']}; losses "
+          f"{lp['losses'].tolist()}; error_log {lp['error_log']}; log_fn at "
+          f"{lp['logged']}; host syncs a step {lp['syncs']} (log steps "
+          f"{[i for i, on in enumerate(log_at) if on]}); collectives "
+          f"{lp['counts']}; warm {lp['step_ms']:.3f} ms/step ({LOOP_TIMED} "
+          f"steps at ratios {lp['timed_ratios']}) beside the serial loop in "
+          f"the same rank, before and after, {lp['serial_ms'][0]:.3f} / "
+          f"{lp['serial_ms'][1]:.3f}, and phase 6b's {loop_ms:.3f}; one "
+          f"epoch of 300 steps of batch 1 in "
+          f"{lp['epoch_s']:.1f} s wrote {lp['files']}, read back "
+          f"{'bit for bit' if lp['read_back'] else 'DIFFERENT'} [{card}]",
+          flush=True)
+    if n != LOOP_WARM + LOOP_TIMED:
+        raise AssertionError(f"8c: the loop ran {n} steps")
+    for ratio, got in zip(lp["ratios"], lp["launches"]):
+        levels = int(np.log2(ratio))
+        if (got["select"] <= 0 or got["chamfer"] != 1
+                or got["interlevel"] != levels - 1):
+            raise AssertionError(f"8c: a ratio-{ratio} step launched {got}")
+    off_log = [c for c, on in zip(lp["syncs"], log_at) if not on]
+    if any(off_log):
+        raise AssertionError(f"8c: {sum(off_log)} host syncs on steps that "
+                             "do not log")
+    if not np.isfinite(lp["losses"]).all():
+        raise AssertionError("8c: a loss is not finite")
+    logs = sum((start + i + 1) % LOOP_LOG_STEPS == 0 for i in range(n))
+    want = {"broadcast": 1, "all_reduce": n, "all_gather": logs}
+    if lp["counts"] != want or len(lp["logged"]) != logs:
+        raise AssertionError(f"8c: collectives {lp['counts']}, not {want}")
+    if lp["timed_ratios"] != [16]:
+        raise AssertionError(f"8c: the timed loop drew {lp['timed_ratios']}")
+    if not lp["read_back"] or lp["epoch_step"] != 300:
+        raise AssertionError("8c: the epoch's checkpoint")
+
+
+def multi_gpu(fx, card: str, serial_out, off_s: float, bare_ms: float,
+              loop_ms: float) -> dict:
+    """Phase 8: the sharded paths over ``torch.distributed`` with
+    ``nccl``, each rank a process of ``parallel.launch.spawn``: 8a-8c at
+    world size 1, 8d across cards where 2 or more are visible.  Returns
+    the launch count of each kernel on the paths of rank 0 at world size
+    1: ``sharded_eval`` (8a, toggle off), ``sharded_eval_on`` (toggle
+    on), ``sharded_train`` (8b) and ``sharded_loop`` (8c)."""
+    import tempfile
+    import torch
+    from threepu_torch.device import require_cuda
+    from threepu_torch.parallel.launch import spawn
+    t0 = time.perf_counter()
+    dev = require_cuda()
+    cards = torch.cuda.device_count()
+    # 8d's world size; the witness takes it on one card too
+    world = MAX_WORLD if cards >= MAX_WORLD or cards < 2 else 2
+    with tempfile.TemporaryDirectory() as tmp:
+        path = data_file(tmp)
+        [r] = spawn(phase8_rank, 1, ("eval", "train", "loop"), path, tmp,
+                    world)
+    print(f"phase 8 world size 1: {time.perf_counter() - t0:.1f} s with the "
+          f"rank's start [{card}]", flush=True)
+    check_sharded_eval(r, fx, serial_out, off_s, card, dev)
+    check_sharded_train(r, bare_ms, card, world)
+    check_sharded_loop(r, loop_ms, card)
+
+    if cards < 2:
+        print(f"8d did not run: {cards} card visible, and nccl takes one "
+              f"rank a card, so the sharded paths across cards need 2 or "
+              f"more [{card}]", flush=True)
+    else:
+        ranks = spawn(phase8_rank, world, ("eval", "train"), "", "")
+        check_across_cards(ranks, r, fx, card, dev)
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    loop_launches = {n: sum(c[n] for c in r["loop"]["launches"])
+                     for n in r["loop"]["launches"][0]}
+    return {"sharded_eval": r["eval"]["off"]["launches"],
+            "sharded_eval_on": r["eval"]["on"]["launches"],
+            "sharded_train": {n: r["train"][2]["launches"][n]
+                              + r["train"][16]["launches"][n]
+                              for n in r["train"][2]["launches"]},
+            "sharded_loop": loop_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -2356,11 +2939,6 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from threepu_torch import _build, require_cuda
     from threepu_torch.device import card_line
-    import threepu_torch.ops.chamfer as ch_mod
-    import threepu_torch.ops.edgeconv as ec_mod
-    import threepu_torch.ops.fps as fps_mod
-    import threepu_torch.ops.interlevel as il_mod
-    import threepu_torch.ops.select as sel_mod
 
     # 1. device
     card = card_line()
@@ -2375,16 +2953,17 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 3. kernels against their plain versions
-    kernels = {"select": sel_mod.KERNEL, "fps": fps_mod.KERNEL,
-               "interlevel": il_mod.KERNEL, "chamfer": ch_mod.KERNEL,
-               "edgeconv": ec_mod.KERNEL}
+    kernels = rank_kernels()
+    eval_kernels = {k: kernels[k] for k in ("select", "fps", "interlevel",
+                                            "edgeconv")}
     fx = np.load(FIXTURE)
+    from threepu_torch.models import load_net
+    net = load_net(WEIGHTS, **NET).eval()
+
+    # 3. kernels against their plain versions
     report = check_kernels(dev, card, fx)
 
     # 4. end to end
-    from threepu_torch.models import load_net
-    net = load_net(WEIGHTS, **NET).eval()
     for chain_kernel in (False, True):
         stats = replay_cascade(net, fx, dev, chain_kernel)
         for st in stats:
@@ -2392,9 +2971,8 @@ def main() -> int:
                   f"{'on' if chain_kernel else 'off'} {st} [{card}]",
                   flush=True)
         check_replay(stats)
-    eval_kernels = {k: kernels[k] for k in ("select", "fps", "interlevel",
-                                            "edgeconv")}
-    eval_launches, off_s = end_to_end(net, fx, card, eval_kernels)
+    eval_launches, off_s, serial_out = end_to_end(net, fx, card,
+                                                  eval_kernels)
     file_launches = file_to_file(net, fx, card, eval_kernels, off_s)
     bucketed(net, fx, card)
     if args.profile_shapes:
@@ -2405,10 +2983,14 @@ def main() -> int:
                                            kernels, args.profile)
 
     # 6. training from a file
-    file_train = file_training(fx, card, kernels, step_ms)
+    file_train, loop_ms = file_training(fx, card, kernels, step_ms)
 
     # 7. the rest of the one-GPU surface
     file_train.update(surface(fx, card, kernels, off_s, step_ms))
+
+    # 8. the sharded paths over torch.distributed
+    file_train.update(multi_gpu(fx, card, serial_out, off_s, step_ms,
+                                loop_ms))
 
     by_path = {name: {"eval": eval_launches.get(name, 0),
                       "file": file_launches.get(name, 0),

@@ -597,3 +597,34 @@ def test_pipeline_on_gpu_matches_cpu(dev):
     after = [k.launches for k in (tsel.KERNEL, tfps.KERNEL, til.KERNEL)]
     assert all(a > c for a, c in zip(after, counts))
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+
+
+def test_sharded_upsampler_at_world_size_1_equals_serial(dev):
+    """``make_sharded_upsampler`` in one spawned rank under ``nccl`` (one
+    card takes one rank) on the golden-scale shape: bit for bit the
+    serial pipeline in this process, with one all-gather and the select,
+    FPS and interlevel kernels launched in the rank."""
+    import torch_parallel_workers as workers
+    from threepu_torch import _build
+    from threepu_torch.inference import upsample_point_cloud
+    from threepu_torch.models import Net
+    from threepu_torch.parallel.launch import spawn
+    config = dict(max_up_ratio=4, step_ratio=2, knn=8, growth_rate=4,
+                  dense_n=2, max_num_point=32, fm_knn=3)
+    torch.manual_seed(0)
+    net = Net(**config).eval()
+    weights = {k: v.numpy() for k, v in net.state_dict().items()}
+    pts = np.random.default_rng(1234).standard_normal((96, 3)).astype(
+        np.float32)
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    case = dict(kind="cloud", points=pts, ratio=4, num_point=32,
+                num_patches=None, num_out=384)
+    want = upsample_point_cloud(net.to(dev), torch.from_numpy(pts).to(dev),
+                                4, 32, 384).cpu().numpy()
+    _build.library()                  # built once, before the rank starts
+    [(got, counts, launches)] = spawn(workers.sharded_upsample, 1, config,
+                                      weights, case)
+    assert counts == {"all_gather": 1}
+    assert all(launches[name] > 0 for name in ("select", "fps",
+                                               "interlevel"))
+    np.testing.assert_array_equal(got, want)

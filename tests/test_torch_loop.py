@@ -88,10 +88,9 @@ def configs(files, tmp_path, **kw):
 
 
 def test_train_config_fields_match_jax():
-    """Every field of JAX's TrainConfig but ``mesh``, in order, with its
-    default; ``patch_point`` alike."""
-    want = [(f.name, f.default) for f in dataclasses.fields(jloop.TrainConfig)
-            if f.name != "mesh"]
+    """Every field of JAX's TrainConfig, ``mesh`` included, in order, with
+    its default; ``patch_point`` alike."""
+    want = [(f.name, f.default) for f in dataclasses.fields(jloop.TrainConfig)]
     got = [(f.name, f.default) for f in dataclasses.fields(tloop.TrainConfig)]
     assert got == want
     for kw in (dict(num_point=12), dict(drop_out=0.5)):

@@ -13,6 +13,10 @@ Pallas kernel on the TPU is a hand-written CUDA kernel here
 a CUDA tensor and runs the plain PyTorch version of the same function
 on a CPU tensor; there is no fallback from one to the other.
 
+Patch parallelism over several GPUs (one process a card, ``nccl``; or
+CPU processes under ``gloo``) is :mod:`threepu_torch.parallel`, the
+counterpart of :mod:`threepu.parallel`.
+
 This package imports ``torch`` and ``numpy`` only — never ``jax`` or
 ``threepu`` — so it runs on machines without JAX.
 """

@@ -5,7 +5,9 @@ patch is normalized, the ``Net`` eval cascade runs over patch chunks,
 the patches are denormalized and merged, and a final FPS re-stitches
 the merge to ``num_out`` points.  Everything runs on the device of the
 input tensor; the host touches the data to upload the shape and to
-download the result.
+download the result.  With a ``mesh``
+(:class:`threepu_torch.parallel.Mesh`) the patches split over its ranks
+and one all-gather merges them (:mod:`threepu_torch.parallel`).
 """
 
 from __future__ import annotations
@@ -31,14 +33,17 @@ RESTITCH_AUTO_MIN_OUT = 16384
 
 def plan_patches(num_shape_point: int, num_point: int,
                  patch_num_ratio: float = 3.0,
-                 chunk: Optional[int] = None) -> Tuple[int, int, int]:
+                 chunk: Optional[int] = None,
+                 n_dev: int = 1) -> Tuple[int, int, int]:
     """``(num_patches, padded_num_patches, chunk)``: the reference's
     patch count ``int(N / num_point * patch_num_ratio)``, padded up to a
-    whole number of chunks."""
+    whole number of chunks on each of ``n_dev`` ranks (the chunk capped
+    at a rank's share)."""
     num_patches = max(int(num_shape_point / num_point * patch_num_ratio), 1)
-    if chunk is None or chunk >= num_patches:
-        chunk = num_patches
-    padded = -(-num_patches // chunk) * chunk
+    local = -(-num_patches // n_dev)
+    if chunk is None or chunk >= local:
+        chunk = local
+    padded = -(-num_patches // (chunk * n_dev)) * chunk * n_dev
     return num_patches, padded, chunk
 
 
@@ -68,8 +73,8 @@ def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
                          valid_n: Optional[Union[int, torch.Tensor]] = None,
                          valid_patches: Optional[Union[int,
                                                        torch.Tensor]] = None,
-                         restitch_groups: Optional[int] = None
-                         ) -> torch.Tensor:
+                         restitch_groups: Optional[int] = None,
+                         mesh=None) -> torch.Tensor:
     """Upsample one shape ``xyz (N, 3)``, already normalized to the unit
     sphere, to ``(num_out, 3)`` in the same frame.
 
@@ -80,11 +85,19 @@ def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
     = G=8 hierarchical final FPS from 16384 output points up and exact
     FPS below; 1 = exact everywhere; G > 1 = Morton-stratified FPS over
     G groups.
+
+    ``mesh`` (a :class:`threepu_torch.parallel.Mesh`; ``xyz`` and the net
+    on its device): every rank runs the seed FPS, grouping and
+    normalization, the cascade over its own contiguous ``padded / size``
+    patches, one all-gather of the denormalized patches and the final
+    FPS, in which the padding patches are masked; every rank returns the
+    whole output.
     """
     n = xyz.shape[0]
     dev = xyz.device
-    num_patches, padded, chunk = plan_patches(n, num_point, patch_num_ratio,
-                                              chunk)
+    num_patches, padded, chunk = plan_patches(
+        n, num_point, patch_num_ratio, chunk,
+        1 if mesh is None else mesh.size)
     shape_b = xyz[None]                                       # (1, N, 3)
     n_mask = None
     if valid_n is not None:
@@ -95,9 +108,17 @@ def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
         patches = torch.cat([patches, pad], dim=0)
 
     norm, centroid, radius = normalize_point_batch_cl(patches)
+    lo, hi = 0, padded                  # this rank's patches
+    if mesh is not None:
+        local = padded // mesh.size
+        lo, hi = mesh.rank * local, (mesh.rank + 1) * local
     up = torch.cat([net.upsample(norm[i:i + chunk], ratio)
-                    for i in range(0, padded, chunk)], dim=0)
-    up = up * radius + centroid                               # denormalize
+                    for i in range(lo, hi, chunk)], dim=0)
+    up = up * radius[lo:hi] + centroid[lo:hi]                 # denormalize
+    if mesh is not None:
+        # the one collective of a shape: no FPS pick loop or cascade runs
+        # one, and the re-stitch runs on every rank
+        up = mesh.all_gather(up.new_empty((padded,) + up.shape[1:]), up)
     merged = up.reshape(1, padded * num_point * ratio, 3)
 
     valid = None
@@ -131,7 +152,7 @@ def upsample_shape(net: Net, points: np.ndarray, ratio: int,
                    jitter: bool = False, jitter_sigma: float = 0.0025,
                    jitter_max: float = 0.005, drop_out: float = 1.0,
                    seed: int = 0, bucket: Optional[int] = None,
-                   restitch_groups: Optional[int] = None
+                   restitch_groups: Optional[int] = None, mesh=None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-facing flow of the reference's ``test()``: optional FPS
     drop-out to ``num_shape_point * drop_out`` points, normalize,
@@ -146,6 +167,9 @@ def upsample_shape(net: Net, points: np.ndarray, ratio: int,
     exact size: bit-identical on the CPU; on the card the padded
     distance matrices may round apart and flip near-ties, and the
     outputs then agree as point sets.
+
+    ``mesh``: the patches split over its ranks, as in
+    :func:`upsample_point_cloud`; every rank returns the whole result.
 
     Returns ``(input points as processed, upsampled points)``, both in
     the original frame.
@@ -167,7 +191,7 @@ def upsample_shape(net: Net, points: np.ndarray, ratio: int,
     num_out = n_keep * ratio
     n_real = data.shape[0]
     kwargs = dict(patch_num_ratio=patch_num_ratio, chunk=chunk,
-                  restitch_groups=restitch_groups)
+                  restitch_groups=restitch_groups, mesh=mesh)
     if bucket is not None and bucket_size(n_real, bucket) != n_real:
         n_b = bucket_size(n_real, bucket)
         padded = np.zeros((n_b, 3), np.float32)

@@ -19,6 +19,13 @@ host to the device.  Checkpoints: ``model_<epoch>.npz`` with the
 optimizer state (:func:`~threepu_torch.io.save_train_checkpoint`) or,
 with ``ckpt_format="pth"``, the reference's ``model_<epoch>.pth``; every
 ``ckpt_epochs`` epochs and at the end of the run.
+
+With ``TrainConfig.mesh`` (a :class:`threepu_torch.parallel.Mesh`) the
+loop runs on the mesh's device and every rank draws the same global
+batch; :func:`threepu_torch.parallel.make_sharded_train_step` trains on
+each rank's rows and all-reduces the gradients and the loss, so every
+rank's ``error_log`` is the serial one.  Rank 0 alone writes the
+checkpoints; every rank restores ``ckpt``.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ class TrainConfig:
     log_steps: int = 50
     seed: int = 0
     weight_mode: str = "floored"
+    mesh: Optional[object] = None         # threepu_torch.parallel.Mesh
     log_with_pred: bool = True            # log steps also return the
     #                                       prediction, for log_fn
     ckpt_format: str = "npz"              # "npz" | "pth"
@@ -130,13 +138,27 @@ def train_loop(cfg: TrainConfig, max_steps: Optional[int] = None,
     """Train; returns ``(state, error_log)``.
 
     The run is on ``device``: the card unless another device (``"cpu"``)
-    is named.  ``max_steps`` bounds the global step; ``log_fn(step, ratio,
-    loss, state, batch, pred=, gt_out=, error=)`` is called every
-    ``log_steps`` steps (the training monitor's hook).  A fresh net is
-    initialized from ``cfg.seed``; ``cfg.ckpt`` restores a ``.npz`` with
-    its optimizer state where it holds one, or the parameters of a
-    ``.pth``.
+    is named.  With ``cfg.mesh`` the mesh decides it: ``device`` may be
+    left out, and raises where it names another device than the mesh's;
+    ``cfg.batch_size`` must divide by the mesh's size.  ``max_steps`` bounds the
+    global step; ``log_fn(step, ratio, loss, state, batch, pred=, gt_out=,
+    error=)`` is called every ``log_steps`` steps (the training monitor's
+    hook).  A fresh net is initialized from ``cfg.seed``; ``cfg.ckpt``
+    restores a ``.npz`` with its optimizer state where it holds one, or
+    the parameters of a ``.pth``.
     """
+    mesh = cfg.mesh
+    if mesh is not None:
+        if cfg.batch_size % mesh.size:
+            raise ValueError(f"batch_size {cfg.batch_size} does not divide "
+                             f"over {mesh.size} ranks")
+        if device is not None:
+            named = torch.device(device)
+            if named.type != mesh.device.type \
+                    or named.index not in (None, mesh.device.index):
+                raise ValueError(f"train_loop: device {named} is not the "
+                                 f"mesh's {mesh.device}")
+        device = mesh.device
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.random.default_generator.manual_seed(cfg.seed)
@@ -160,6 +182,17 @@ def train_loop(cfg: TrainConfig, max_steps: Optional[int] = None,
             logger.info("restored optimizer state (exact resume)")
         logger.info(f"restored {cfg.ckpt} at step {step}")
     state = TrainState(net, opt, step)
+    step_fn = train_step
+    if mesh is not None:
+        from threepu_torch.parallel import make_sharded_train_step
+        step_fn = make_sharded_train_step(net, opt, mesh)
+
+    def checkpoint(epoch: int, note: str = "") -> None:
+        if mesh is None or mesh.rank == 0:
+            path = save_epoch_checkpoint(cfg, state, step, epoch)
+            logger.info(f"saved {path}{note}")
+        if mesh is not None:
+            mesh.barrier()
 
     num_point = cfg.patch_point
     if cfg.drop_out < 1.0:
@@ -211,9 +244,9 @@ def train_loop(cfg: TrainConfig, max_steps: Optional[int] = None,
                                   cfg.step_ratio, cfg.cd_threshold)
             log_now = (log_fn is not None and cfg.log_with_pred
                        and (step + 1) % cfg.log_steps == 0)
-            out = train_step(net, opt, inp, gt, ratio, threshold=st.threshold,
-                             weight_mode=cfg.weight_mode, seed_idx=seeds,
-                             with_pred=log_now)
+            out = step_fn(net, opt, inp, gt, ratio, threshold=st.threshold,
+                          weight_mode=cfg.weight_mode, seed_idx=seeds,
+                          with_pred=log_now)
             cd, (pred, gt_out) = out if log_now else (out, (None, None))
             step += 1
             state.step = step
@@ -234,10 +267,8 @@ def train_loop(cfg: TrainConfig, max_steps: Optional[int] = None,
                 f"{k}={v:.6f}" for k, v in sorted(error_log.items()))
             + f" ({(time.time() - t0):.1f}s)")
         if epoch % cfg.ckpt_epochs == 0:
-            path = save_epoch_checkpoint(cfg, state, step, epoch)
-            logger.info(f"saved {path}")
+            checkpoint(epoch)
     # the completed run is always saved, whatever ckpt_epochs
     if start_epoch < cfg.max_epoch and cfg.max_epoch % cfg.ckpt_epochs:
-        path = save_epoch_checkpoint(cfg, state, step, cfg.max_epoch)
-        logger.info(f"saved {path} (final)")
+        checkpoint(cfg.max_epoch, " (final)")
     return state, error_log
