@@ -102,7 +102,7 @@ def test_level_matches(rng, prev_group):
     apply = jax.jit(lambda p, *a: jm.apply({"params": p}, *a, **jargs))
     want_xyz, want_f = apply(params, jnp.asarray(xyz), jnp.asarray(norm),
                              (jnp.asarray(prev), jnp.asarray(prev_feat)))
-    tm = tup.Level(**kw)
+    tm = tup.Level(**kw, span_name="level1")
     tm.load_state_dict(port_state(params), strict=True)
     with torch.no_grad():
         got_xyz, got_f = tm(t(xyz), t(norm), (t(prev), t(prev_feat)), **targs)

@@ -95,7 +95,7 @@ def test_gen_grid_matches_jax(size):
 def test_level_code_matches_jax(step_ratio):
     """A Level's code points, bit for bit: the 1-D column below 4, else
     the grid of round(sqrt(r))² points (JAX's fix: 4 points at r = 4)."""
-    got = tup.Level(step_ratio=step_ratio).code.numpy()
+    got = tup.Level(step_ratio=step_ratio, span_name="level1").code.numpy()
     np.testing.assert_array_equal(got, jup.Level(step_ratio=step_ratio).code)
     if step_ratio == 4:
         assert got.shape == (4, 2)
@@ -115,7 +115,7 @@ def test_level_step4_matches_jax(rng, grouped):
     params = jax.jit(jm.init)(jax.random.PRNGKey(2), jnp.asarray(xyz),
                               jnp.asarray(norm), None)["params"]
     params = jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), params)
-    tm = tup.Level(**kw)
+    tm = tup.Level(**kw, span_name="level1")
     tm.load_state_dict(state_dict_from_jax(flatten_tree(params)), strict=True)
     feat_c = 24 + 4 * (24 + kw["dense_n"] * kw["growth_rate"])
     assert tm.up_layer.up_layer1.conv.weight.shape[1] == feat_c + 2

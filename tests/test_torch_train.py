@@ -186,7 +186,7 @@ def test_level_gradient_reaches_prev_feat_only(rng):
                                          (a[2], a[3])),
                      *map(jnp.asarray, (xyz, norm, prev, prev_feat)))
     want = vjp(tuple(map(jnp.asarray, cot)))
-    tm = TLevel(**kw)
+    tm = TLevel(**kw, span_name="level1")
     tm.load_state_dict(state_dict_from_jax(flatten_tree(params)),
                        strict=True)
     args = [t(a).requires_grad_() for a in (xyz, norm, prev, prev_feat)]

@@ -23,6 +23,7 @@ from threepu_torch.ops.gather import gather_nd
 from threepu_torch.ops.knn import knn_group
 from threepu_torch.ops.normalize import normalize_point_batch_cl
 from threepu_torch.utils import pc_utils
+from threepu_torch.utils.profiling import span
 
 #: group count of the hierarchical final re-stitch, and the output size
 #: from which it engages when ``restitch_groups`` is left unset (the JAX
@@ -98,22 +99,26 @@ def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
     num_patches, padded, chunk = plan_patches(
         n, num_point, patch_num_ratio, chunk,
         1 if mesh is None else mesh.size)
-    shape_b = xyz[None]                                       # (1, N, 3)
-    n_mask = None
-    if valid_n is not None:
-        n_mask = (torch.arange(n, device=dev) < valid_n)[None]
-    patches = cut_patches(shape_b, num_patches, num_point, n_mask)
-    if padded != num_patches:
-        pad = patches[:1].expand(padded - num_patches, -1, -1)
-        patches = torch.cat([patches, pad], dim=0)
+    with span("seed", on=xyz):
+        shape_b = xyz[None]                                   # (1, N, 3)
+        n_mask = None
+        if valid_n is not None:
+            n_mask = (torch.arange(n, device=dev) < valid_n)[None]
+        patches = cut_patches(shape_b, num_patches, num_point, n_mask)
+        if padded != num_patches:
+            pad = patches[:1].expand(padded - num_patches, -1, -1)
+            patches = torch.cat([patches, pad], dim=0)
+        norm, centroid, radius = normalize_point_batch_cl(patches)
 
-    norm, centroid, radius = normalize_point_batch_cl(patches)
     lo, hi = 0, padded                  # this rank's patches
     if mesh is not None:
         local = padded // mesh.size
         lo, hi = mesh.rank * local, (mesh.rank + 1) * local
-    up = torch.cat([net.upsample(norm[i:i + chunk], ratio)
-                    for i in range(lo, hi, chunk)], dim=0)
+    ups = []
+    for i in range(lo, hi, chunk):
+        with span("cascade", on=xyz):
+            ups.append(net.upsample(norm[i:i + chunk], ratio))
+    up = torch.cat(ups, dim=0)
     up = up * radius[lo:hi] + centroid[lo:hi]                 # denormalize
     if mesh is not None:
         # the one collective of a shape: no FPS pick loop or cascade runs
@@ -129,15 +134,16 @@ def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
         valid = torch.arange(padded, device=dev)[:, None] < patch_limit
         valid = valid.expand(padded, num_point * ratio).reshape(1, -1)
     groups = resolve_restitch_groups(restitch_groups, num_out)
-    if groups > 1:
-        # restitch_groups is a lower bound on the grouping: no group may
-        # outgrow what the FPS kernel's callers expect of one cloud
-        group_max = min(-(-merged.shape[1] // groups), PALLAS_MAX_N)
-        final_idx = fps_hierarchical(merged, num_out, valid_mask=valid,
-                                     group_max=group_max)
-    else:
-        final_idx = _dispatch_fps(merged, num_out, valid)
-    return gather_nd(merged, final_idx)[0]
+    with span("restitch", on=xyz):
+        if groups > 1:
+            # restitch_groups is a lower bound on the grouping: no group
+            # may outgrow what the FPS kernel's callers expect of one cloud
+            group_max = min(-(-merged.shape[1] // groups), PALLAS_MAX_N)
+            final_idx = fps_hierarchical(merged, num_out, valid_mask=valid,
+                                         group_max=group_max)
+        else:
+            final_idx = _dispatch_fps(merged, num_out, valid)
+        return gather_nd(merged, final_idx)[0]
 
 
 def bucket_size(n: int, quantum: int = 1024) -> int:
@@ -177,33 +183,41 @@ def upsample_shape(net: Net, points: np.ndarray, ratio: int,
     dev = next(net.parameters()).device
     points = np.asarray(points, np.float32)[..., :3]
     n_keep = int((num_shape_point or points.shape[0]) * drop_out)
-    if drop_out < 1.0:
-        pts_b = torch.from_numpy(points[None]).to(dev)
-        idx = _dispatch_fps(pts_b, n_keep)
-        points = gather_nd(pts_b, idx)[0].cpu().numpy()
-
-    data, centroid, furthest = pc_utils.normalize_point_cloud(points)
-    if jitter:
-        is_2d = bool(np.all(data[:, 2] == 0))
-        data = pc_utils.jitter_perturbation_point_cloud(
-            data[None], np.random.default_rng(seed), sigma=jitter_sigma,
-            clip=jitter_max, is_2D=is_2d)[0]
     num_out = n_keep * ratio
-    n_real = data.shape[0]
     kwargs = dict(patch_num_ratio=patch_num_ratio, chunk=chunk,
                   restitch_groups=restitch_groups, mesh=mesh)
-    if bucket is not None and bucket_size(n_real, bucket) != n_real:
-        n_b = bucket_size(n_real, bucket)
-        padded = np.zeros((n_b, 3), np.float32)
-        padded[:n_real] = data
+    with span("shape", on=dev):
+        with span("prepare"):
+            if drop_out < 1.0:
+                pts_b = torch.from_numpy(points[None]).to(dev)
+                idx = _dispatch_fps(pts_b, n_keep)
+                points = gather_nd(pts_b, idx)[0].cpu().numpy()
+
+            data, centroid, furthest = pc_utils.normalize_point_cloud(points)
+            if jitter:
+                is_2d = bool(np.all(data[:, 2] == 0))
+                data = pc_utils.jitter_perturbation_point_cloud(
+                    data[None], np.random.default_rng(seed),
+                    sigma=jitter_sigma, clip=jitter_max, is_2D=is_2d)[0]
+            n_real = data.shape[0]
+            bucketed = (bucket is not None
+                        and bucket_size(n_real, bucket) != n_real)
+            if bucketed:
+                n_b = bucket_size(n_real, bucket)
+                padded = np.zeros((n_b, 3), np.float32)
+                padded[:n_real] = data
+                xyz = torch.from_numpy(padded).to(dev)
+                kwargs.update(valid_n=n_real, valid_patches=plan_patches(
+                    n_real, num_point, patch_num_ratio)[0])
+            else:
+                xyz = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
         up = upsample_point_cloud(
-            net, torch.from_numpy(padded).to(dev), ratio, num_point,
-            n_b * ratio, valid_n=n_real,
-            valid_patches=plan_patches(n_real, num_point, patch_num_ratio)[0],
-            **kwargs)[:num_out]
-    else:
-        up = upsample_point_cloud(
-            net, torch.from_numpy(np.ascontiguousarray(data)).to(dev), ratio,
-            num_point, num_out, **kwargs)
-    up = up.cpu().numpy() * furthest + centroid
-    return data * furthest + centroid, up
+            net, xyz, ratio, num_point,
+            xyz.shape[0] * ratio if bucketed else num_out, **kwargs)
+        if bucketed:
+            up = up[:num_out]
+        with span("finish"):
+            with span("finish.download"):
+                up = up.cpu().numpy()
+            with span("finish.host"):
+                return data * furthest + centroid, up * furthest + centroid

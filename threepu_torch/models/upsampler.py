@@ -41,6 +41,7 @@ from threepu_torch.ops.gather import batched_gather, gather_nd
 from threepu_torch.ops.interlevel import interlevel
 from threepu_torch.ops.knn import knn_group
 from threepu_torch.ops.normalize import normalize_point_batch_cl
+from threepu_torch.utils.profiling import span
 
 
 #: what a capture holds: ``{"level_<l>.<name>": tensor}``
@@ -96,12 +97,20 @@ class Level(nn.Module):
     264, then the code-grid expansion (:func:`level_code`: 1 code
     channel below ``step_ratio`` 4, else 2) and the coordinate regressor
     128 -> 128 -> 64 -> 3 with a residual skip.
+
+    ``span_name`` prefixes the names of the spans :meth:`forward`
+    records (:func:`~threepu_torch.utils.profiling.span`):
+    ``<span_name>.conv1`` ... ``.conv4`` (each edge conv with its prep;
+    ``conv1`` also the duplicate mask and ``layer0``), ``.interlevel``
+    and ``.head`` (the expansion and the coordinate regressor).
     """
 
     def __init__(self, dense_n: int = 3, growth_rate: int = 12,
-                 knn: int = 16, fm_knn: int = 5, step_ratio: int = 2):
+                 knn: int = 16, fm_knn: int = 5, step_ratio: int = 2, *,
+                 span_name: str):
         super().__init__()
         self.fm_knn = fm_knn
+        self.span_name = span_name
         code = level_code(step_ratio)
         self.register_buffer("code", torch.from_numpy(code),
                              persistent=False)
@@ -144,42 +153,57 @@ class Level(nn.Module):
         point features (B, N, C))``.
         """
         b, n, _ = xyz_normalized.shape
-        # identical points have identical features: one mask on xyz
-        # serves every feature-space kNN of the level
-        dup = duplicate_mask(xyz_normalized)
-        x = self.layer0(xyz_normalized)
-        if capture is not None:
-            capture.update(xyz_in=xyz, layer_0=x)
-        for i in (1, 2, 3, 4):
-            inp = x if i == 1 else getattr(self, f"layer{i}_prep")(x)
-            y, idx = getattr(self, f"layer{i}")(inp, dup, chain_kernel)
-            x = torch.cat([y, x], dim=-1)
+        name = self.span_name
+        with span(f"{name}.conv1"):
+            # identical points have identical features: one mask on xyz
+            # serves every feature-space kNN of the level
+            dup = duplicate_mask(xyz_normalized)
+            x = self.layer0(xyz_normalized)
             if capture is not None:
-                capture[f"layer_{i}"] = x
-                capture[f"nnIdx_layer_{i - 1}"] = idx
+                capture.update(xyz_in=xyz, layer_0=x)
+            x = self._dense_block(1, x, x, dup, chain_kernel, capture)
+        for i in (2, 3, 4):
+            with span(f"{name}.conv{i}"):
+                inp = getattr(self, f"layer{i}_prep")(x)
+                x = self._dense_block(i, x, inp, dup, chain_kernel, capture)
 
         if previous_level4 is not None and self.fm_knn > 0:
-            prev_xyz, prev_feat = previous_level4
-            if prev_dup is None:
-                prev_dup = duplicate_mask(prev_xyz)
-            if prev_xyz.shape[0] * prev_group != b:
-                raise ValueError("previous set batch times prev_group must "
-                                 "equal the batch")
-            interp, _ = interlevel(xyz.contiguous(), x.contiguous(),
-                                   prev_xyz.contiguous(),
-                                   prev_feat.contiguous(),
-                                   prev_dup.contiguous(), self.fm_knn)
-            x = 0.2 * interp + x
+            with span(f"{name}.interlevel"):
+                prev_xyz, prev_feat = previous_level4
+                if prev_dup is None:
+                    prev_dup = duplicate_mask(prev_xyz)
+                if prev_xyz.shape[0] * prev_group != b:
+                    raise ValueError("previous set batch times prev_group "
+                                     "must equal the batch")
+                interp, _ = interlevel(xyz.contiguous(), x.contiguous(),
+                                       prev_xyz.contiguous(),
+                                       prev_feat.contiguous(),
+                                       prev_dup.contiguous(), self.fm_knn)
+                x = 0.2 * interp + x
         point_features = x
 
-        # point-major expansion: output slot n*r + j holds point n, code j
-        r, c = self.code.shape[0], x.shape[-1]
-        x = x[:, :, None, :].expand(b, n, r, c).reshape(b, n * r, c)
-        code = self.code.to(x.dtype)[None, None].expand(b, n, r, -1)
-        x = torch.cat([x, code.reshape(b, n * r, -1)], dim=-1)
-        x = self.fc_layer2(self.fc_layer1(self.up_layer(x)))
-        residual = xyz_normalized[:, :, None, :].expand(b, n, r, 3)
-        return x + residual.reshape(b, n * r, 3), point_features
+        with span(f"{name}.head"):
+            # point-major expansion: output slot n*r + j holds point n,
+            # code j
+            r, c = self.code.shape[0], x.shape[-1]
+            x = x[:, :, None, :].expand(b, n, r, c).reshape(b, n * r, c)
+            code = self.code.to(x.dtype)[None, None].expand(b, n, r, -1)
+            x = torch.cat([x, code.reshape(b, n * r, -1)], dim=-1)
+            x = self.fc_layer2(self.fc_layer1(self.up_layer(x)))
+            residual = xyz_normalized[:, :, None, :].expand(b, n, r, 3)
+            return x + residual.reshape(b, n * r, 3), point_features
+
+    def _dense_block(self, i: int, x: torch.Tensor, inp: torch.Tensor,
+                     dup: torch.Tensor, chain_kernel: bool,
+                     capture: Optional[Capture]) -> torch.Tensor:
+        """Edge conv ``layer<i>`` on ``inp``, its output put before the
+        features ``x``."""
+        y, idx = getattr(self, f"layer{i}")(inp, dup, chain_kernel)
+        x = torch.cat([y, x], dim=-1)
+        if capture is not None:
+            capture[f"layer_{i}"] = x
+            capture[f"nnIdx_layer_{i - 1}"] = idx
+        return x
 
 
 class Net(nn.Module):
@@ -198,7 +222,7 @@ class Net(nn.Module):
         num_levels = int(math.log(max_up_ratio, step_ratio))
         self.levels = nn.ModuleDict(
             (f"level_{l}", Level(dense_n, growth_rate, knn, fm_knn,
-                                 step_ratio))
+                                 step_ratio, span_name=f"level{l}"))
             for l in range(1, num_levels + 1))
 
     def forward(self, xyz: torch.Tensor, ratio: Optional[int] = None,
@@ -287,43 +311,50 @@ class Net(nn.Module):
             return out
 
         old_xyz = xyz
-        xyz, old_feats = level(1, xyz, xyz)
+        with span("level1", on=xyz):
+            xyz, old_feats = level(1, xyz, xyz)
         prev_invalid = None
         for l in range(2, num_levels + 1):
             n_cur = xyz.shape[1]
-            if n_cur <= max_np:
-                norm, centroid, radius = normalize_point_batch_cl(xyz)
-                new_xyz, feats = level(l, xyz, norm, (old_xyz, old_feats))
-                old_xyz, old_feats, prev_invalid = xyz, feats, None
-                xyz = new_xyz * radius + centroid
-                continue
+            with span(f"level{l}", on=xyz):
+                if n_cur <= max_np:
+                    norm, centroid, radius = normalize_point_batch_cl(xyz)
+                    new_xyz, feats = level(l, xyz, norm, (old_xyz, old_feats))
+                    old_xyz, old_feats, prev_invalid = xyz, feats, None
+                    xyz = new_xyz * radius + centroid
+                    continue
 
-            n_sub = int(n_cur / max_np * 5)
-            sub, true_sub = self._extract_patch_eval(xyz, max_np, n_sub)
-            flat = sub.reshape(p * n_sub, max_np, 3)
-            norm, centroid, radius = normalize_point_batch_cl(flat)
-            # phantom previous rows must never be picked, like duplicates
-            prev_dup = duplicate_mask(old_xyz)
-            if prev_invalid is not None:
-                prev_dup = prev_dup | prev_invalid
-            new_xyz, feats = level(l, flat, norm, (old_xyz, old_feats),
-                                   prev_group=n_sub, prev_dup=prev_dup)
-            new_xyz = new_xyz * radius + centroid
-            # merge the sub-patches of each top patch, then re-stitch by
-            # FPS over the real sub-patches only
-            patch_valid = (torch.arange(n_sub, device=dev)[None, :]
-                           < true_sub[:, None])                # (p, n_sub)
-            n_lvl = new_xyz.shape[1]
-            merged = new_xyz.reshape(p, n_sub * n_lvl, 3)
-            merge_valid = patch_valid[:, :, None].expand(
-                p, n_sub, n_lvl).reshape(p, -1)
-            sel = _dispatch_fps(merged, num_point * self.step_ratio ** l,
-                                merge_valid)
-            xyz = gather_nd(merged, sel)
-            old_xyz = flat.reshape(p, n_sub * max_np, 3)
-            old_feats = feats.reshape(p, n_sub * max_np, -1)
-            prev_invalid = ~patch_valid[:, :, None].expand(
-                p, n_sub, max_np).reshape(p, -1)
+                n_sub = int(n_cur / max_np * 5)
+                with span(f"level{l}.extract"):
+                    sub, true_sub = self._extract_patch_eval(xyz, max_np,
+                                                             n_sub)
+                    flat = sub.reshape(p * n_sub, max_np, 3)
+                    norm, centroid, radius = normalize_point_batch_cl(flat)
+                    # phantom previous rows must never be picked, like
+                    # duplicates
+                    prev_dup = duplicate_mask(old_xyz)
+                    if prev_invalid is not None:
+                        prev_dup = prev_dup | prev_invalid
+                new_xyz, feats = level(l, flat, norm, (old_xyz, old_feats),
+                                       prev_group=n_sub, prev_dup=prev_dup)
+                new_xyz = new_xyz * radius + centroid
+                # merge the sub-patches of each top patch, then re-stitch
+                # by FPS over the real sub-patches only
+                patch_valid = (torch.arange(n_sub, device=dev)[None, :]
+                               < true_sub[:, None])            # (p, n_sub)
+                n_lvl = new_xyz.shape[1]
+                merged = new_xyz.reshape(p, n_sub * n_lvl, 3)
+                merge_valid = patch_valid[:, :, None].expand(
+                    p, n_sub, n_lvl).reshape(p, -1)
+                with span(f"level{l}.merge_fps"):
+                    sel = _dispatch_fps(merged,
+                                        num_point * self.step_ratio ** l,
+                                        merge_valid)
+                    xyz = gather_nd(merged, sel)
+                old_xyz = flat.reshape(p, n_sub * max_np, 3)
+                old_feats = feats.reshape(p, n_sub * max_np, -1)
+                prev_invalid = ~patch_valid[:, :, None].expand(
+                    p, n_sub, max_np).reshape(p, -1)
         return xyz
 
     def _extract_patch_eval(self, xyz: torch.Tensor, k: int, n_sub: int
