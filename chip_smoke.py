@@ -57,15 +57,16 @@ no result line:
       on the fused chain kernel (the tight check of that kernel inside
       the net).
    b. The pipeline: held-out shape 0 (5000 points) upsampled 16x to
-      80,000 points, chunk 8, G=8 re-stitch.  The launch counts of the
-      three kernels must be select 96, FPS 38, interlevel 18 for that run
-      (as before the capture of phase 7e existed), the output finite
-      and (80000, 3), its Chamfer distance to the ground truth within
-      5% of the JAX package's, and its Chamfer distance to the JAX
-      output no larger than the JAX package's distance to itself when
-      its input is perturbed by 1e-6 (relative): float rounding flips
-      near-ties of the re-stitch FPS, so this band holds the port to
-      the surface, and (a) to the numbers.
+      80,000 points, chunk 8, G=8 re-stitch, edge convs on the plain
+      chain (the toggle off; the kernel is the default).  The launch
+      counts of the three kernels must be select 96, FPS 38, interlevel
+      18 for that run (as before the capture of phase 7e existed), the
+      output finite and (80000, 3), its Chamfer distance to the ground
+      truth within 5% of the JAX package's, and its Chamfer distance to
+      the JAX output no larger than the JAX package's distance to itself
+      when its input is perturbed by 1e-6 (relative): float rounding
+      flips near-ties of the re-stitch FPS, so this band holds the port
+      to the surface, and (a) to the numbers.
    c. File to file, with the edge-conv toggle on: the same shape written
       to an ``.xyz`` file, ``threepu_torch.cli.main(["--phase", "test",
       ...])`` at the same configuration, the two ``.ply`` files read
@@ -982,6 +983,14 @@ def run_shape(net, fx, **kwargs):
     return out
 
 
+def plain_chain():
+    """The eval cascade's edge convs on the plain PyTorch chain
+    (``ops.edgeconv.ENABLED`` off; the kernel is the default), for the
+    runs held beside the kernel's."""
+    import threepu_torch.ops.edgeconv as ec_mod
+    return mock.patch.object(ec_mod, "ENABLED", False)
+
+
 def warm_shape_s(net, fx, **kwargs) -> tuple:
     """``(best, times)`` of three warm :func:`run_shape` runs, in
     seconds."""
@@ -1005,23 +1014,24 @@ def checked_launches(kernels: dict, required, what: str) -> dict:
 
 
 def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
-    """Phase 4b: the 16x pipeline on held-out shape 0; returns the
-    launch count of each kernel in the checked run, the warm seconds per
-    shape and the checked run's output."""
-    t0 = time.perf_counter()
-    run_shape(net, fx)                               # first run: warm-up
-    first_s = time.perf_counter() - t0
-    for k in kernels.values():
-        k.launches = 0
-    out = run_shape(net, fx)
-    launches = checked_launches(kernels, ("select", "fps", "interlevel"),
-                                "main-path")
+    """Phase 4b: the 16x pipeline on held-out shape 0, edge convs on the
+    plain chain; returns the launch count of each kernel in the checked
+    run, the warm seconds per shape and the checked run's output."""
+    with plain_chain():
+        t0 = time.perf_counter()
+        run_shape(net, fx)                           # first run: warm-up
+        first_s = time.perf_counter() - t0
+        for k in kernels.values():
+            k.launches = 0
+        out = run_shape(net, fx)
+        launches = checked_launches(kernels, ("select", "fps", "interlevel"),
+                                    "main-path")
+        best, times = warm_shape_s(net, fx)
     for name, want in EVAL_LAUNCHES.items():
         if launches[name] != want:
             raise AssertionError(f"the 16x shape launched {name} "
                                  f"{launches[name]} times, not {want}")
     check_output(out, fx, next(net.parameters()).device, "16x pipeline")
-    best, times = warm_shape_s(net, fx)
     n_out = out.shape[0]
     print(f"16x {fx['input'].shape[0]} -> {n_out}: first run {first_s:.3f} s, "
           f"warm s/shape {best:.4f} (runs {[round(t, 4) for t in times]}), "
@@ -1036,13 +1046,11 @@ def file_to_file(net, fx, card: str, kernels: dict, off_s: float) -> dict:
     ``off_s`` (phase 4b's warm seconds per shape, toggle off) serve the
     timing that follows."""
     import tempfile
-    import threepu_torch.ops.edgeconv as ec_mod
     from threepu_torch import cli
     from threepu_torch.io import read_ply
 
     dev = next(net.parameters()).device
-    with tempfile.TemporaryDirectory() as tmp, \
-            mock.patch.object(ec_mod, "ENABLED", True):
+    with tempfile.TemporaryDirectory() as tmp:
         os.mkdir(os.path.join(tmp, "shapes"))
         np.savetxt(os.path.join(tmp, "shapes", "shape0.xyz"), fx["input"])
         for k in kernels.values():
@@ -1081,7 +1089,8 @@ def bucketed(net, fx, card: str) -> None:
     from the exact-size run's and flip near-ties, so the output is held
     to the ground truth, not to the JAX output."""
     t0 = time.perf_counter()
-    out = run_shape(net, fx, bucket=1024)
+    with plain_chain():
+        out = run_shape(net, fx, bucket=1024)
     print(f"bucketed run {time.perf_counter() - t0:.3f} s [{card}]",
           flush=True)
     check_output(out, fx, next(net.parameters()).device, "bucket=1024",
@@ -1990,7 +1999,6 @@ def step4_file_to_file(net4, fx, sfx, card: str, kernels: dict,
     the launch count of each kernel in the command line's run."""
     import tempfile
     import torch
-    import threepu_torch.ops.edgeconv as ec_mod
     from threepu_torch import cli
     from threepu_torch.io import read_ply
 
@@ -2005,14 +2013,12 @@ def step4_file_to_file(net4, fx, sfx, card: str, kernels: dict,
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
-        with mock.patch.object(ec_mod, "ENABLED", True):
-            cli.main(["--phase", "test", "--ckpt", weights, "--step_ratio",
-                      "4", "--test_data",
-                      os.path.join(tmp, "shapes", "*.xyz"), "--num_point",
-                      str(int(fx["num_point"])), "--up_ratio",
-                      str(int(fx["ratio"])), "--knn", str(NET4["knn"]),
-                      "--chunk", str(int(fx["chunk"])), "--result_dir",
-                      os.path.join(tmp, "out")])
+        cli.main(["--phase", "test", "--ckpt", weights, "--step_ratio", "4",
+                  "--test_data", os.path.join(tmp, "shapes", "*.xyz"),
+                  "--num_point", str(int(fx["num_point"])), "--up_ratio",
+                  str(int(fx["ratio"])), "--knn", str(NET4["knn"]),
+                  "--chunk", str(int(fx["chunk"])), "--result_dir",
+                  os.path.join(tmp, "out")])
         cli_s = time.perf_counter() - t0
         launches = checked_launches(
             kernels, ("select", "fps", "interlevel", "edgeconv"),
@@ -2036,7 +2042,8 @@ def step4_file_to_file(net4, fx, sfx, card: str, kernels: dict,
     if abs(cd_gt - jax_cd) > 0.05 * jax_cd:
         raise AssertionError("step-4: chamfer to gt is not within 5% of "
                              "JAX's")
-    best, times = warm_shape_s(net4, fx)
+    with plain_chain():
+        best, times = warm_shape_s(net4, fx)
     print(f"step-4 16x warm s/shape, edge-conv kernel off {best:.4f} (runs "
           f"{[round(t, 4) for t in times]}); step-2 net {off_s:.4f} (phase "
           f"4b) [{card}]", flush=True)
@@ -2215,7 +2222,6 @@ def vis_phase_check(fx, sfx, card: str, kernels: dict) -> dict:
     Returns the launch count of each kernel in the command line's run."""
     import tempfile
     import torch
-    import threepu_torch.ops.edgeconv as ec_mod
     import threepu_torch.vis as vis_mod
     from threepu_torch import cli
     from threepu_torch.models import load_net
@@ -2227,8 +2233,7 @@ def vis_phase_check(fx, sfx, card: str, kernels: dict) -> dict:
 
     n_vis = sfx["vis_layer_4"].shape[1]
     with tempfile.TemporaryDirectory() as tmp, \
-            mock.patch.object(vis_mod.Painter, "interactive_3D_plot", record), \
-            mock.patch.object(ec_mod, "ENABLED", True):
+            mock.patch.object(vis_mod.Painter, "interactive_3D_plot", record):
         os.mkdir(os.path.join(tmp, "shapes"))
         np.savetxt(os.path.join(tmp, "shapes", "shape0.xyz"), fx["input"])
         for k in kernels.values():
@@ -2438,19 +2443,19 @@ def params_of(net) -> dict:
 def rank_eval(mesh, fx) -> dict:
     """Phase 8a in a rank: the fixture's shape through ``upsample_shape``
     with the mesh (phase 4b's configuration): a warm-up run, the checked
-    run, three warm runs, then one run with the edge-conv kernel on."""
-    import threepu_torch.ops.edgeconv as ec_mod
+    run, three warm runs on the plain chain, then one run with the
+    edge-conv kernel (the default)."""
     from threepu_torch.models import load_net
     kernels = rank_kernels()
     net = load_net(WEIGHTS, device=mesh.device, **NET).eval()
     t0 = time.perf_counter()
     run_shape(net, fx, mesh=mesh)
     first_s = time.perf_counter() - t0
-    with counted(mesh, kernels) as off:
-        out = run_shape(net, fx, mesh=mesh)
-    best, times = warm_shape_s(net, fx, mesh=mesh)
-    with counted(mesh, kernels) as on, \
-            mock.patch.object(ec_mod, "ENABLED", True):
+    with plain_chain():
+        with counted(mesh, kernels) as off:
+            out = run_shape(net, fx, mesh=mesh)
+        best, times = warm_shape_s(net, fx, mesh=mesh)
+    with counted(mesh, kernels) as on:
         out_on = run_shape(net, fx, mesh=mesh)
     return dict(out=out, off=off, first_s=first_s, best=best, times=times,
                 out_on=out_on, on=on)

@@ -17,9 +17,9 @@ microseconds a call on that script's arguments of the level-1 edge conv
 every tree); then that script's ``chamfer_times`` (the Chamfer kernel
 one way and both ways through ``nn_one_way`` and ``nn_distance``, at the
 80k and train shapes: events, time in a CUDA graph, launches a call);
-then ``chip_smoke.end_to_end`` (the 16x pipeline, launch counts, warm
-seconds per shape) and the warm seconds per shape again with the
-edge-conv toggle ``ops.edgeconv.ENABLED`` on
+then ``chip_smoke.end_to_end`` (the 16x pipeline on the plain edge-conv
+chain, launch counts, warm seconds per shape) and the warm seconds per
+shape again with the edge-conv toggle ``ops.edgeconv.ENABLED`` on
 (``chip_smoke.warm_shape_s``), with that run's edge-conv launches per
 shape.  Every output line is prefixed with ``[TREE]``.  Give the trees
 as A B B A to compare two versions on one card with the drift of the
@@ -72,9 +72,10 @@ print(f"edge conv wrapper, the layer's arguments at B=8 N=312 k=32 G=12 "
       f"host a call [{card}]", flush=True)
 here.chamfer_times(dev, fx, card)
 net = load_net(cs.WEIGHTS, **cs.NET).eval()
-_, off_s = cs.end_to_end(net, fx, card, {
+# the plain chain's warm s/shape: phase 4b returns it second
+off_s = cs.end_to_end(net, fx, card, {
     "select": se.KERNEL, "fps": fp.KERNEL, "interlevel": il.KERNEL,
-    "edgeconv": ec.KERNEL})
+    "edgeconv": ec.KERNEL})[1]
 before = ec.KERNEL.launches
 with mock.patch.object(ec, "ENABLED", True):
     on_s, times = cs.warm_shape_s(net, fx)

@@ -201,13 +201,66 @@ def test_train_cascade_never_takes_the_chain_kernel(rng, monkeypatch):
     assert net.levels["level_1"].layer1.mlps[0].weight.grad is not None
 
 
+def test_train_cascade_under_no_grad_never_takes_the_chain_kernel(
+        rng, monkeypatch):
+    """The route is the cascade's, not the grad mode's: ``Net.forward``'s
+    train cascade in eval mode under ``no_grad``, where the kernel could
+    take the call, still keeps the decomposed path."""
+    def refuse(*args):
+        raise AssertionError("the train cascade called edge_conv_chain")
+
+    monkeypatch.setattr(tec, "enabled_for", lambda tensor: True)
+    monkeypatch.setattr("threepu_torch.models.layers.edge_conv_chain", refuse)
+    net = Net(max_up_ratio=4, knn=6, max_num_point=48, growth_rate=4,
+              dense_n=2).eval()
+    x = torch.from_numpy(rng.standard_normal((2, 48, 3)).astype(np.float32))
+    gt = torch.from_numpy(rng.standard_normal((2, 192, 3)).astype(np.float32))
+    with torch.no_grad():
+        pred, _ = net(x, 4, gt, seed_idx=[torch.zeros(2, 1, dtype=torch.long)])
+    assert pred.shape == (2, 96, 3)
+
+
 def test_enabled_for_needs_the_toggle_and_a_cuda_tensor(monkeypatch):
-    assert tec.ENABLED is False
+    """On by default: a CUDA tensor takes the kernel, a CPU tensor never;
+    ``ENABLED = False`` sends both to the plain chain."""
+    assert tec.ENABLED is True
     cpu = torch.zeros(1)
     fake_cuda = type("T", (), {"is_cuda": True})()
-    assert not tec.enabled_for(cpu) and not tec.enabled_for(fake_cuda)
-    monkeypatch.setattr(tec, "ENABLED", True)
     assert not tec.enabled_for(cpu) and tec.enabled_for(fake_cuda)
+    monkeypatch.setattr(tec, "ENABLED", False)
+    assert not tec.enabled_for(cpu) and not tec.enabled_for(fake_cuda)
+
+
+@pytest.mark.parametrize("dense_n,growth_rate,routed",
+                         [(5, 4, False), (2, 33, False), (4, 32, True)],
+                         ids=["n5", "g33", "widest"])
+def test_upsample_routes_by_the_nets_widths(rng, monkeypatch, dense_n,
+                                            growth_rate, routed):
+    """Where ``enabled_for`` says yes, ``Net.upsample`` takes the kernel
+    only for nets it is instantiated for (``dense_n <= 4``, ``growth_rate
+    <= 32``); a wider net runs on the plain chain and does not raise (the
+    wrapper refuses ``n = 5`` and ``g = 33``).  Either way the output is
+    the plain route's."""
+    calls = []
+    chain = tec.edge_conv_chain
+
+    def counted(*args):
+        calls.append(args[-2:])
+        return chain(*args)
+
+    monkeypatch.setattr("threepu_torch.models.layers.edge_conv_chain", counted)
+    torch.manual_seed(0)
+    net = Net(max_up_ratio=4, knn=6, max_num_point=48,
+              growth_rate=growth_rate, dense_n=dense_n).eval()
+    x = torch.from_numpy(rng.standard_normal((2, 48, 3)).astype(np.float32))
+    monkeypatch.setattr(tec, "enabled_for", lambda tensor: False)
+    want = net.upsample(x, 4)
+    assert not calls
+    monkeypatch.setattr(tec, "enabled_for", lambda tensor: True)
+    got = net.upsample(x, 4)
+    assert calls == ([(dense_n, growth_rate)] * 8 if routed else [])
+    assert got.shape == (2, 192, 3)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 def _torch_inputs(n=2, g=4, **kw):

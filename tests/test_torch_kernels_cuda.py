@@ -514,6 +514,21 @@ def test_edge_conv_chain_kernel_matches_plain(dev, gen, b, num_n, k, n, g,
     assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("b", [8, 80, 160, 320])
+def test_edge_conv_chain_kernel_is_the_plain_chain_bit_for_bit(dev, gen, b):
+    """At the eval cascade's shapes (N = 312, k = 32, G = 12, n = 3, in the
+    layer's layout) the kernel gives the plain chain's output bit for
+    bit: it sums each weight block's products apart and adds the blocks
+    in order, as cuBLAS and the plain chain round, so a later conv's kNN
+    flips no near-tie against the plain route (the benchmark's check
+    replays every level on it)."""
+    z, idx, pts, chain_w = _chain_inputs(gen, dev, b, 312, 32, 3, 12,
+                                         "layer")
+    got = tec.edge_conv_chain(z, idx, pts, chain_w, 3, 12)
+    want = tec.edge_conv_chain_plain(z, idx, pts, chain_w, 3, 12)
+    assert torch.equal(got, want)
+
+
 def test_edge_conv_chain_kernel_rejects_what_it_does_not_take(dev, gen):
     z, idx, pts, chain_w = _chain_inputs(gen, dev, 2, 10, 3, 2, 4)
     before = tec.KERNEL.launches
@@ -532,8 +547,9 @@ def test_edge_conv_chain_kernel_rejects_what_it_does_not_take(dev, gen):
 
 
 def test_pipeline_with_the_chain_kernel_on_gpu(dev, monkeypatch):
-    """The golden-scale pipeline on the GPU with the edge-conv toggle on:
-    16 chain launches per chunk, and the output of the toggle-off run to
+    """The golden-scale pipeline on the GPU, no toggle set: the edge-conv
+    kernel by default, 8 chain launches per chunk (2 levels x 4 convs),
+    and the output of the run with the toggle off (the plain chain) to
     float32 rounding."""
     from threepu_torch.inference import upsample_point_cloud
     from threepu_torch.models import Net
@@ -545,13 +561,37 @@ def test_pipeline_with_the_chain_kernel_on_gpu(dev, monkeypatch):
     pts /= np.linalg.norm(pts, axis=1, keepdims=True)
     xyz = torch.from_numpy(pts).to(dev)
     before = tec.KERNEL.launches
-    want = upsample_point_cloud(net, xyz, 4, 32, 384, chunk=4)
-    assert tec.KERNEL.launches == before
-    monkeypatch.setattr(tec, "ENABLED", True)
     got = upsample_point_cloud(net, xyz, 4, 32, 384, chunk=4)
     assert tec.KERNEL.launches == before + 8 * 3      # 9 patches pad to 12
+    monkeypatch.setattr(tec, "ENABLED", False)
+    want = upsample_point_cloud(net, xyz, 4, 32, 384, chunk=4)
+    assert tec.KERNEL.launches == before + 8 * 3
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4)
+
+
+def test_default_16x_upsample_takes_the_chain_kernel(dev, monkeypatch):
+    """A default 16x net's ``Net.upsample`` of one chunk (8 patches of 312
+    points), no toggle set: 16 edge-conv launches (4 levels x 4 convs),
+    and the same call on the plain chain (``ENABLED = False``) within the
+    benchmark's row band: at most 1% of the rows off by more than 1e-4.
+    The kernel sums as the plain chain does, so no kNN or FPS pick of a
+    later stage flips against it."""
+    from threepu_torch.models import Net
+    torch.manual_seed(0)
+    net = Net().eval().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    xyz = torch.randn((8, 312, 3), generator=gen, device=dev)
+    xyz = xyz / xyz.norm(dim=-1, keepdim=True)
+    before = tec.KERNEL.launches
+    got = net.upsample(xyz)
+    assert tec.KERNEL.launches == before + 16
+    monkeypatch.setattr(tec, "ENABLED", False)
+    want = net.upsample(xyz)
+    assert tec.KERNEL.launches == before + 16
+    assert got.shape == want.shape == (8, 312 * 16, 3)
+    rows_off = ((got - want).abs().amax(-1) > 1e-4).float().mean().item()
+    assert rows_off <= 0.01, rows_off
 
 
 def test_train_step_on_gpu_matches_cpu(dev):

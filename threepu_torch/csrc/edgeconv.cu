@@ -27,18 +27,21 @@
 // n(n-1)/2 weight blocks from shared memory, where the block staged them
 // once, zero-padded to GP x GP: a broadcast float4 that feeds eight fused
 // multiply-adds, four for each neighbour (with one neighbour a lane a read
-// fed four, and the kernel was 1.2x slower at B = 320: PERF.md).  The
-// products are fused multiply-adds over the source channel, in increasing
-// order, block (i, 0) first: the plain version's cuBLAS products round the
-// same way up to the order of the sum.  The stage vectors are the lane's
-// candidates for the max themselves, so no running max is kept (a round of
-// a larger k folds its result into the few channels the lane ends with).
+// fed four, and the kernel was 1.2x slower at B = 320: PERF.md).  Each
+// block's products are fused multiply-adds over the source channel, in
+// increasing order from zero, and the blocks' sums are added in block
+// order, (i, 0) first, then the point term: the order in which the plain
+// version's cuBLAS products and its adds round, so that a later conv's kNN
+// sees the plain version's features and flips none of its near-ties
+// (PERF.md).  The stage vectors are the lane's candidates for the max
+// themselves, so no running max is kept (a round of a larger k folds its
+// result into the few channels the lane ends with).
 // The max over the neighbours is a reduce-scatter: at each of four xor
 // steps a lane keeps half of its channels and trades the other half with
 // its partner, so the n * GP channels end spread over the point's lanes
 // after ~n * GP shuffles (35 at n * G = 36, where a butterfly on every
 // channel took 180), and the lanes write the point's row together.  Blocks
-// of 4 warps, held to 96 registers a thread (5 blocks an SM), walk points
+// of 4 warps, held to 128 registers a thread (4 blocks an SM), walk points
 // with a grid stride, so the weights are staged once per block.  z, idx and
 // pts are read through their strides, idx as int32 or int64: the wrapper
 // passes the edge conv's sliced index view and the layer's one product of z
@@ -59,8 +62,10 @@ constexpr int kBlocksPerSm = 16;
 constexpr int kMaxStages = 4;
 constexpr int kMaxBlocks = kMaxStages * (kMaxStages - 1) / 2;
 // blocks an SM that the register allocation of the instantiations with
-// n * GP <= 48 (the main path's is 36) must leave room for: 96 registers
-constexpr int kMinBlocks = 5;
+// n * GP <= 48 (the main path's is 36) must leave room for: 128 registers
+// (at 5 blocks and 96, a stage's separate block sums spilled 352 bytes and
+// the kernel ran 1.3x slower at B = 320: PERF.md)
+constexpr int kMinBlocks = 4;
 // neighbours a lane: 16 lanes a point, two points a warp, each weight read
 // feeding both neighbours' products
 constexpr int kNpl = 2;
@@ -223,26 +228,34 @@ edgeconv_kernel(const EdgeConvArgs a, long long points, bool vec) {
       for (int i = 1; i < NS; ++i) {
 #pragma unroll
         for (int q = 0; q < kQuads; ++q) {
+          // each block's products sum apart, from zero; the blocks' sums
+          // then add in block order, as the plain version's do
           float y[kNpl][4];
-#pragma unroll
-          for (int u = 0; u < kNpl; ++u)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) y[u][e] = 0.f;
 #pragma unroll
           for (int jj = 0; jj < i; ++jj) {
             const float4* wb = ws + (i * (i - 1) / 2 + jj) * GP * kQuads;
+            float t[kNpl][4];
+#pragma unroll
+            for (int u = 0; u < kNpl; ++u)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) t[u][e] = 0.f;
 #pragma unroll
             for (int r = 0; r < GP; ++r) {
               const float4 wv = wb[r * kQuads + q];
 #pragma unroll
               for (int u = 0; u < kNpl; ++u) {
                 const float src = gs[u][i - 1 - jj][r];
-                y[u][0] = fmaf(src, wv.x, y[u][0]);
-                y[u][1] = fmaf(src, wv.y, y[u][1]);
-                y[u][2] = fmaf(src, wv.z, y[u][2]);
-                y[u][3] = fmaf(src, wv.w, y[u][3]);
+                t[u][0] = fmaf(src, wv.x, t[u][0]);
+                t[u][1] = fmaf(src, wv.y, t[u][1]);
+                t[u][2] = fmaf(src, wv.z, t[u][2]);
+                t[u][3] = fmaf(src, wv.w, t[u][3]);
               }
             }
+#pragma unroll
+            for (int u = 0; u < kNpl; ++u)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                y[u][e] = jj == 0 ? t[u][e] : y[u][e] + t[u][e];
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e) {

@@ -219,6 +219,7 @@ class Net(nn.Module):
         self.max_up_ratio = max_up_ratio
         self.step_ratio = step_ratio
         self.max_num_point = max_num_point
+        self.dense_n, self.growth_rate = dense_n, growth_rate
         num_levels = int(math.log(max_up_ratio, step_ratio))
         self.levels = nn.ModuleDict(
             (f"level_{l}", Level(dense_n, growth_rate, knn, fm_knn,
@@ -291,15 +292,20 @@ class Net(nn.Module):
                  capture: Optional[Capture] = None) -> torch.Tensor:
         """Eval cascade: normalized patches ``(P, N, 3)`` ->
         ``(P, N*ratio, 3)`` in the same frame.  The edge convs take the
-        fused chain kernel when :func:`edgeconv.enabled_for` says so,
-        read once per call.  ``capture``, when given, receives every
-        level's intermediates (:class:`Level`) under ``"level_<l>."``."""
+        fused chain kernel when :func:`edgeconv.enabled_for` says so and
+        the net's stages and growth rate fit it (``dense_n <=
+        edgeconv.MAX_N``, ``growth_rate <= edgeconv.MAX_G``), else the
+        plain chain; decided once per call.  ``capture``, when given,
+        receives every level's intermediates (:class:`Level`) under
+        ``"level_<l>."``."""
         ratio = ratio or self.max_up_ratio
         num_levels = int(math.log(ratio, self.step_ratio))
         p, num_point, _ = xyz.shape
         max_np = min(num_point, self.max_num_point)
         dev = xyz.device
-        chain_kernel = edgeconv.enabled_for(xyz)
+        chain_kernel = (edgeconv.enabled_for(xyz)
+                        and self.dense_n <= edgeconv.MAX_N
+                        and self.growth_rate <= edgeconv.MAX_G)
 
         def level(l, *args, **kw):
             level_capture = None if capture is None else {}

@@ -14,10 +14,13 @@ max-pools every stage over the ``k`` neighbours.
   tensors, :func:`edge_conv_chain_plain` on CPU tensors.  Forward only,
   as in the JAX package: it raises when a gradient is asked of it.
 
-:data:`ENABLED` is the eval path's toggle, read once per
-``Net.upsample`` call through :func:`enabled_for`.  It is off by
-default, as in the JAX package; whether the kernel ran shows in
-``KERNEL.launches``, not in the output.
+:data:`ENABLED` routes the eval cascade, read once per ``Net.upsample``
+call through :func:`enabled_for`.  It is on by default: ``Net.upsample``
+takes the kernel on a CUDA tensor wherever the net's stages and growth
+rate fit it (:data:`MAX_N`, :data:`MAX_G`), and the plain chain
+elsewhere.  ``ENABLED = False`` sends the cascade back to the plain chain,
+which comparisons of the two routes use.  Whether the kernel ran shows
+in ``KERNEL.launches``, not in the output.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ KERNEL = Kernel("threepu_edge_conv_chain", [ctypes.c_char_p],
                 replaces="threepu/ops/edgeconv_pallas.py:103")
 
 #: route the eval cascade's edge convs through :func:`edge_conv_chain`
-ENABLED = False
+ENABLED = True
 
 #: what the kernel is instantiated for: stages ``n`` and growth rate ``g``
 MAX_N = 4
