@@ -32,12 +32,16 @@ TINY = ["--num_shape_point", "64", "--num_point", "16", "--up_ratio", "4",
 def test_parser_has_every_flag_of_the_jax_cli():
     """Every action of ``threepu.cli.build_parser()`` has a counterpart
     with the same option strings, dest, default, type, choices and arity;
-    the port adds none."""
+    the port adds one, ``--arch``, whose default is the JAX package's one
+    net."""
     def actions(parser):
         return {a.dest: a for a in parser._actions
                 if not isinstance(a, argparse._HelpAction)}
 
     want, got = actions(jcli.build_parser()), actions(tcli.build_parser())
+    arch = got.pop("arch")
+    assert (arch.option_strings, arch.default, arch.choices) == (
+        ["--arch"], "3pu", ["3pu", "punet"])
     assert list(got) == list(want)
     assert len(want) >= 40
     for dest, a in want.items():
@@ -45,8 +49,8 @@ def test_parser_has_every_flag_of_the_jax_cli():
         assert (b.option_strings, b.default, b.type, b.choices, b.nargs,
                 b.const, type(b)) == (a.option_strings, a.default, a.type,
                                       a.choices, a.nargs, a.const, type(a)), dest
-    assert vars(tcli.build_parser().parse_args([])) == vars(
-        jcli.build_parser().parse_args([]))
+    assert vars(tcli.build_parser().parse_args([])) == dict(
+        vars(jcli.build_parser().parse_args([])), arch="3pu")
 
 
 @pytest.mark.parametrize("argv", [

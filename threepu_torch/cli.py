@@ -17,8 +17,11 @@ train`` trains from an ``.hdf5`` or ``.npz`` training file and writes
 ``--phase vis`` captures the cascade's per-level kNN graphs of each test
 file and plots each with :class:`threepu_torch.vis.Painter` (matplotlib).
 ``--step_ratio`` sets the net's per-level ratio in every phase (2: a 1-D
-code column, 4: a 2-D code grid).  Every ``--knn_method`` but ``exact``
-raises: they are not ported.
+code column, 4: a 2-D code grid).  ``--arch punet`` runs PU-Net's
+generator instead of 3PU's cascade in ``--phase test`` (``--up_ratio 4``;
+``--ckpt`` a ``.pth`` state dict under the published scope names); it
+is the port's one flag that the JAX package lacks.  Every
+``--knn_method`` but ``exact`` raises: they are not ported.
 
 The entry point runs on the CUDA device ``--device`` (or ``--gpu``) and
 raises where none is visible.  A Python caller may name another device:
@@ -39,7 +42,7 @@ import torch
 
 from threepu_torch.inference import upsample_shape
 from threepu_torch.io import import_pth, load, save_ply
-from threepu_torch.models import Net, load_net
+from threepu_torch.models import load_net
 from threepu_torch.ops import knn
 from threepu_torch.train import TrainConfig, train_loop
 from threepu_torch.utils import logger
@@ -119,6 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir",
                    help="profile the first shape with torch.profiler and "
                         "write a Chrome trace (trace.json) there")
+    p.add_argument("--arch", default="3pu", choices=["3pu", "punet"],
+                   help="the net: 3PU's cascade, or PU-Net's generator "
+                        "(--phase test, --up_ratio 4) [default: 3pu]")
     p.add_argument("--restitch_groups", type=int, default=None,
                    help="final re-stitch FPS grouping.  Default auto: G=8 "
                         "Morton-stratified hierarchical FPS from 16384 "
@@ -154,10 +160,18 @@ def _device(flags, device: Device) -> Device:
     return device
 
 
-def _build_net(flags, device: Device = None) -> Net:
+def _build_net(flags, device: Device = None) -> torch.nn.Module:
     """The flags' ``Net`` with ``--ckpt`` (``.npz``, or ``.pth`` through
     :func:`import_pth`) loaded strictly, on ``device`` (``None``: the CUDA
-    device ``--device``, else ``--gpu``)."""
+    device ``--device``, else ``--gpu``); with ``--arch punet``, a
+    ``PUNet`` for patches of ``--num_point`` points and its state dict."""
+    if flags.arch == "punet":
+        num_point = flags.num_point or int(flags.num_shape_point
+                                           * flags.drop_out)
+        net = load_net(flags.ckpt, _device(flags, device), arch="punet",
+                       num_point=num_point, up_ratio=flags.up_ratio)
+        logger.info(f"restored {flags.ckpt}")
+        return net.eval()
     cfg = dict(max_up_ratio=flags.up_ratio, step_ratio=flags.step_ratio,
                knn=flags.knn, growth_rate=flags.growth_rate,
                dense_n=flags.dense_n, fm_knn=flags.fm_knn)
@@ -279,6 +293,8 @@ def main(argv: Optional[Sequence[str]] = None, device: Device = None) -> None:
             f"--knn_method {flags.knn_method} is not ported; only 'exact' is")
     if flags.phase != "train" and flags.ckpt is None:
         raise SystemExit(f"--ckpt is required for {flags.phase}")
+    if flags.arch == "punet" and flags.phase != "test":
+        raise SystemExit("--arch punet runs --phase test only")
     select_kernel = knn.EXACT_SELECT_KERNEL
     knn.set_exact_select_kernel(flags.select_kernel == "on")
     try:

@@ -12,12 +12,11 @@ and one all-gather merges them (:mod:`threepu_torch.parallel`).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Iterator, Optional, Protocol, Tuple, Union
 
 import numpy as np
 import torch
 
-from threepu_torch.models import Net
 from threepu_torch.ops.fps import PALLAS_MAX_N, _dispatch_fps, fps_hierarchical
 from threepu_torch.ops.gather import gather_nd
 from threepu_torch.ops.knn import knn_group
@@ -30,6 +29,16 @@ from threepu_torch.utils.profiling import span
 #: package's defaults, chosen there at trained weights)
 DEFAULT_RESTITCH_GROUPS = 8
 RESTITCH_AUTO_MIN_OUT = 16384
+
+
+class Upsampler(Protocol):
+    """A net of the eval path (``Net``, ``PUNet``): normalized patches
+    ``(P, N, 3)`` in, ``(P, N * ratio, 3)`` out, in the same frame."""
+
+    def upsample(self, xyz: torch.Tensor, ratio: Optional[int] = None,
+                 capture: Optional[dict] = None) -> torch.Tensor: ...
+
+    def parameters(self) -> Iterator[torch.nn.Parameter]: ...
 
 
 def plan_patches(num_shape_point: int, num_point: int,
@@ -67,7 +76,7 @@ def resolve_restitch_groups(requested: Optional[int], num_out: int) -> int:
 
 
 @torch.no_grad()
-def upsample_point_cloud(net: Net, xyz: torch.Tensor, ratio: int,
+def upsample_point_cloud(net: Upsampler, xyz: torch.Tensor, ratio: int,
                          num_point: int, num_out: int,
                          patch_num_ratio: float = 3.0,
                          chunk: Optional[int] = None,
@@ -151,7 +160,7 @@ def bucket_size(n: int, quantum: int = 1024) -> int:
     return -(-n // quantum) * quantum
 
 
-def upsample_shape(net: Net, points: np.ndarray, ratio: int,
+def upsample_shape(net: Upsampler, points: np.ndarray, ratio: int,
                    num_point: int = 312, patch_num_ratio: float = 3.0,
                    chunk: Optional[int] = 8,
                    num_shape_point: Optional[int] = None,

@@ -33,6 +33,7 @@ from threepu_torch.device import resolve_device
 from threepu_torch.io.weights import load_jax_checkpoint
 from threepu_torch.models.layers import (DenseConv, DenseEdgeConv,
                                          SampledDenseEdgeConv)
+from threepu_torch.models.punet import PUNet
 from threepu_torch.ops import edgeconv
 from threepu_torch.ops.chamfer import self_nn_dist2
 from threepu_torch.ops.distances import duplicate_mask
@@ -459,11 +460,22 @@ class AdaptiveLevel(nn.Module):
 
 def load_net(weights: Optional[str] = None,
              device: Optional[Union[str, torch.device]] = None,
-             **cfg) -> Net:
-    """``Net(**cfg)`` on ``device`` — the card unless another device
-    (``"cpu"``) is named — with the JAX checkpoint ``weights`` (an
-    ``.npz`` path) loaded strictly when given."""
+             arch: str = "3pu", **cfg) -> nn.Module:
+    """The net of ``arch`` built from ``cfg`` on ``device`` — the card
+    unless another device (``"cpu"``) is named — with ``weights`` loaded
+    strictly when given: ``"3pu"``, ``Net(**cfg)`` and a JAX checkpoint
+    (an ``.npz`` path); ``"punet"``, ``PUNet(**cfg)`` and the ``.pth``
+    that ``torch.save(net.state_dict())`` wrote (the published scope
+    names)."""
     dev = resolve_device(device)
+    if arch == "punet":
+        net = PUNet(**cfg)
+        if weights is not None:
+            net.load_state_dict(torch.load(weights, map_location="cpu",
+                                           weights_only=True), strict=True)
+        return net.to(dev)
+    if arch != "3pu":
+        raise ValueError(f"no net {arch!r}: '3pu' or 'punet'")
     net = Net(**cfg)
     if weights is not None:
         net.load_state_dict(load_jax_checkpoint(weights), strict=True)

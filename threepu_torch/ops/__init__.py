@@ -8,7 +8,8 @@ and :mod:`~threepu_torch.ops.edgeconv`; each keeps its kernel's launch
 count on its ``KERNEL`` object (the wrappers ``select``, ``fps`` and
 ``interlevel`` share their modules' names, so they are not re-exported
 here: the package attribute stays the module).  :func:`ball_query` is
-plain PyTorch, as the JAX package computes it with XLA.
+plain PyTorch, as the JAX package computes it with XLA, and so are
+PU-Net's :func:`three_nn` and :func:`three_interpolate`.
 """
 
 from threepu_torch.ops.ball_query import ball_query
@@ -22,13 +23,14 @@ from threepu_torch.ops.gather import batched_gather, gather_nd, gather_points
 from threepu_torch.ops.knn import KnnResult, group_knn, knn_group
 from threepu_torch.ops.normalize import (normalize_point_batch,
                                          normalize_point_batch_cl)
+from threepu_torch.ops.three_nn import three_interpolate, three_nn
 
 __all__ = [
     "pairwise_dist2", "direct_dist2", "duplicate_mask",
     "knn_group", "group_knn", "KnnResult",
     "fps_indices", "furthest_point_sample",
     "gather_points", "gather_nd", "batched_gather",
-    "ball_query",
+    "ball_query", "three_nn", "three_interpolate",
     "normalize_point_batch", "normalize_point_batch_cl",
     "nn_distance", "nndistance", "self_nn_dist2",
     # the port's own: kernel wrappers
