@@ -237,10 +237,11 @@ def card():
 
 @pytest.mark.cuda
 def test_punet_on_the_card_follows_the_reference(card):
-    """The card's FPS kernel, selection kernel and cuBLAS products, in
-    the CUDA graphs of the first call and their replays on other patches,
-    against the reference on the card: the same selections, coordinates
-    within 1e-5, at the published 1,024 points a patch."""
+    """The card's FPS kernel, selection kernel and cuBLAS products, run
+    as written at the first call, in the CUDA graphs the second call
+    captures and in their replay at the third, on other patches each
+    time, against the reference on the card: the same selections,
+    coordinates within 1e-5, at the published 1,024 points a patch."""
     torch.manual_seed(0)
     net = PUNet().to(card).eval()
     shape = torch.from_numpy(surface(5000, 9))

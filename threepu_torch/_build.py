@@ -30,7 +30,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -145,8 +145,13 @@ class Kernel:
     ``tensor.data_ptr()`` for pointers.  Each call launches on PyTorch's
     current stream, raises if the launch was refused (the C function
     returned a ``cudaError_t`` other than 0), and only then adds one to
-    :attr:`launches`.
+    :attr:`launches`.  A call inside a CUDA graph's capture launches
+    nothing: :class:`threepu_torch.models.graphs.Stages` adds a graph's
+    captured launches to :attr:`launches` at each replay instead.
+    :attr:`instances` lists every entry point made.
     """
+
+    instances: List["Kernel"] = []
 
     def __init__(self, symbol: str, argtypes: Sequence, source: str,
                  replaces: str):
@@ -156,6 +161,7 @@ class Kernel:
         self.replaces = replaces      # the Pallas kernel it ports, file:line
         self.launches = 0
         self._fn = None
+        Kernel.instances.append(self)
 
     def __call__(self, *args) -> None:
         lib = library()

@@ -26,7 +26,9 @@ Parameters keep the published scopes: ``layer<l>.conv<j>``,
 ``fc_layer1``, ``fc_layer2``; each a 1x1 conv's ``weight (out, in, 1, 1)``
 and ``bias``.  On a card the 14 stages of a chunk (each SA level's FPS,
 ball query and group MLP, the FP layers, the expansion) run as CUDA
-graphs (:class:`_Stages`), each under its ``punet.*`` span.
+graphs (:class:`~threepu_torch.models.graphs.Stages`), each under its
+``punet.*`` span, once two calls in a row have asked for an input shape
+(the net holds one set, :class:`~threepu_torch.models.graphs.StageSets`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from threepu_torch.models.graphs import EAGER, Stages, StageSets
 from threepu_torch.models.layers import Conv1x1
 from threepu_torch.ops.ball_query import ball_query
 from threepu_torch.ops.fps import fps
@@ -66,56 +69,6 @@ def _mlp(convs: Sequence[Conv1x1], x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-class _Stages:
-    """How :meth:`PUNet.upsample` runs its stages for one input shape on
-    one device.  On a CUDA device each stage is a CUDA graph, captured at
-    its first call and replayed after: a chunk's few hundred small
-    launches become 14, so the host no longer sets the pace.  A stage
-    takes the copy of the input (:meth:`input`) or earlier stages'
-    outputs, which are the graphs' own tensors: the same storage on every
-    call, overwritten by the next (:meth:`own` copies one out).  On the
-    CPU every stage runs as written."""
-
-    def __init__(self, xyz: torch.Tensor):
-        self.cuda = xyz.is_cuda
-        self.graphs: Dict[str, tuple] = {}
-        if self.cuda:
-            self.xyz = torch.empty(xyz.shape, device=xyz.device)
-            self.pool = torch.cuda.graph_pool_handle()
-
-    def input(self, xyz: torch.Tensor) -> torch.Tensor:
-        if not self.cuda:
-            return xyz.contiguous()
-        self.xyz.copy_(xyz)
-        return self.xyz
-
-    def own(self, t: torch.Tensor) -> torch.Tensor:
-        return t.clone() if self.cuda else t
-
-    def __call__(self, name: str, fn, *args):
-        if not self.cuda:
-            return fn(*args)
-        got = self.graphs.get(name)
-        if got is not None and any(a.data_ptr() != b.data_ptr()
-                                   for a, b in zip(args, got[1])):
-            raise RuntimeError(f"PUNet stage {name} was captured on other "
-                               "tensors")
-        if got is None:
-            # one run outside the capture, as cuBLAS and the allocator
-            # want, on a side stream
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn(*args)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool):
-                out = fn(*args)
-            got = self.graphs[name] = (graph, args, out)
-        got[0].replay()
-        return got[2]
-
-
 class PUNet(nn.Module):
     """PU-Net's generator at its published widths for patches of
     ``num_point`` points, 4x.  :meth:`upsample` is the chunk interface of
@@ -130,7 +83,7 @@ class PUNet(nn.Module):
             raise ValueError(f"PUNet: {num_point} points do not halve "
                              f"{len(RADII) - 1} times")
         self.num_point, self.up_ratio = num_point, up_ratio
-        self._stages: Dict[tuple, _Stages] = {}
+        self._stages = StageSets()
 
         def convs(widths, c_in, fmt):
             out = {}
@@ -216,11 +169,11 @@ class PUNet(nn.Module):
             raise ValueError(f"PUNet takes patches of {self.num_point} "
                              f"points; got {n}")
         xyz = xyz.to(torch.float32)
-        key = (tuple(xyz.shape), xyz.device)
-        run = self._stages.get(key)
-        if run is None:
-            run = self._stages[key] = _Stages(xyz)
-        xyz = run.input(xyz)
+        run = EAGER
+        if Stages.graphed(xyz):
+            run = self._stages.take((tuple(xyz.shape), xyz.device),
+                                    partial(Stages, xyz.device))
+        xyz = run.input("xyz", xyz)
         kept = {}
         sa = []
         l_xyz, l_feat = xyz, None

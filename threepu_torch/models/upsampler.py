@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
+from functools import partial
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -31,6 +32,7 @@ from torch import nn
 
 from threepu_torch.device import resolve_device
 from threepu_torch.io.weights import load_jax_checkpoint
+from threepu_torch.models.graphs import EAGER, Stages, StageSets
 from threepu_torch.models.layers import (DenseConv, DenseEdgeConv,
                                          SampledDenseEdgeConv)
 from threepu_torch.models.punet import PUNet
@@ -99,11 +101,13 @@ class Level(nn.Module):
     channel below ``step_ratio`` 4, else 2) and the coordinate regressor
     128 -> 128 -> 64 -> 3 with a residual skip.
 
-    ``span_name`` prefixes the names of the spans :meth:`forward`
-    records (:func:`~threepu_torch.utils.profiling.span`):
-    ``<span_name>.conv1`` ... ``.conv4`` (each edge conv with its prep;
-    ``conv1`` also the duplicate mask and ``layer0``), ``.interlevel``
-    and ``.head`` (the expansion and the coordinate regressor).
+    ``span_name`` names the level's stage (:meth:`forward`) and prefixes
+    the names of the spans its work records
+    (:func:`~threepu_torch.utils.profiling.span`) where it runs as
+    written, not as a graph's replay: ``<span_name>.conv1`` ... ``.conv4``
+    (each edge conv with its prep; ``conv1`` also the duplicate mask and
+    ``layer0``), ``.interlevel`` and ``.head`` (the expansion and the
+    coordinate regressor).
     """
 
     def __init__(self, dense_n: int = 3, growth_rate: int = 12,
@@ -136,7 +140,8 @@ class Level(nn.Module):
                 prev_group: int = 1,
                 prev_dup: Optional[torch.Tensor] = None,
                 chain_kernel: bool = False,
-                capture: Optional[Capture] = None
+                capture: Optional[Capture] = None,
+                stages: Stages = EAGER
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``xyz``/``xyz_normalized (B, N, 3)``: the input points, raw
         and normalized.  ``previous_level4 = (prev_xyz (B / prev_group,
@@ -148,11 +153,37 @@ class Level(nn.Module):
         to the four edge convs (forward-only; eval paths).  ``capture``
         receives ``xyz_in`` (``xyz``), ``layer_0`` ... ``layer_4`` (the
         features after each block) and ``nnIdx_layer_0`` ...
-        ``nnIdx_layer_3`` (each edge conv's kNN indices).
+        ``nnIdx_layer_3`` (each edge conv's kNN indices).  ``stages``
+        (:class:`~threepu_torch.models.graphs.Stages`) runs the level as
+        one stage named ``span_name``, a CUDA graph under
+        :meth:`Net.upsample` on a card: the arguments are copied into its
+        static inputs and the results come back as copies, so a caller
+        may keep both across later calls.
 
         Returns ``(upsampled xyz (B, N*r, 3) in the normalized frame,
         point features (B, N, C))``.
         """
+        name = self.span_name
+        args = [stages.input(f"{name}.xyz", xyz),
+                stages.input(f"{name}.xyz_normalized", xyz_normalized)]
+        if previous_level4 is not None:
+            args += [stages.input(f"{name}.prev_xyz", previous_level4[0]),
+                     stages.input(f"{name}.prev_feat", previous_level4[1])]
+            if prev_dup is not None:
+                args.append(stages.input(f"{name}.prev_dup", prev_dup))
+        out, point_features = stages(
+            name, partial(self._body, prev_group, chain_kernel, capture),
+            *args)
+        return stages.own(out), stages.own(point_features)
+
+    def _body(self, prev_group: int, chain_kernel: bool,
+              capture: Optional[Capture], xyz: torch.Tensor,
+              xyz_normalized: torch.Tensor,
+              prev_xyz: Optional[torch.Tensor] = None,
+              prev_feat: Optional[torch.Tensor] = None,
+              prev_dup: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward`'s work, with its arguments unpacked."""
         b, n, _ = xyz_normalized.shape
         name = self.span_name
         with span(f"{name}.conv1"):
@@ -168,9 +199,8 @@ class Level(nn.Module):
                 inp = getattr(self, f"layer{i}_prep")(x)
                 x = self._dense_block(i, x, inp, dup, chain_kernel, capture)
 
-        if previous_level4 is not None and self.fm_knn > 0:
+        if prev_xyz is not None and self.fm_knn > 0:
             with span(f"{name}.interlevel"):
-                prev_xyz, prev_feat = previous_level4
                 if prev_dup is None:
                     prev_dup = duplicate_mask(prev_xyz)
                 if prev_xyz.shape[0] * prev_group != b:
@@ -226,6 +256,7 @@ class Net(nn.Module):
             (f"level_{l}", Level(dense_n, growth_rate, knn, fm_knn,
                                  step_ratio, span_name=f"level{l}"))
             for l in range(1, num_levels + 1))
+        self._stages = StageSets()
 
     def forward(self, xyz: torch.Tensor, ratio: Optional[int] = None,
                 gt: Optional[torch.Tensor] = None, train: bool = True,
@@ -288,6 +319,12 @@ class Net(nn.Module):
         gt_patch = knn_group(seeds, gt, gt_k).neighbors[:, 0]
         return patch, gt_patch
 
+    def _apply(self, fn, *args, **kwargs):
+        # moved or cast parameters leave the captured graphs' pointers
+        # behind: capture anew
+        self._stages.clear()
+        return super()._apply(fn, *args, **kwargs)
+
     @torch.no_grad()
     def upsample(self, xyz: torch.Tensor, ratio: Optional[int] = None,
                  capture: Optional[Capture] = None) -> torch.Tensor:
@@ -298,71 +335,117 @@ class Net(nn.Module):
         edgeconv.MAX_N``, ``growth_rate <= edgeconv.MAX_G``), else the
         plain chain; decided once per call.  ``capture``, when given,
         receives every level's intermediates (:class:`Level`) under
-        ``"level_<l>."``."""
+        ``"level_<l>."``.
+
+        On a CUDA tensor without a ``capture``, every stage of the
+        cascade is a CUDA graph
+        (:class:`~threepu_torch.models.graphs.Stages`) once two calls in
+        a row have asked for its chunk shape, ratio, device and edge-conv
+        route: captured then and replayed at every later call of that key
+        (the net holds one set,
+        :class:`~threepu_torch.models.graphs.StageSets`; a key asked for
+        once runs as written).  The stages are each level
+        (:class:`Level`) and each re-patching level's ``extract`` and
+        ``merge_fps``.  Every level is still called on
+        every chunk, with arguments and results that are the caller's
+        own, as is the output, so callers may keep a level's inputs and
+        outputs across chunks.
+        """
         ratio = ratio or self.max_up_ratio
         num_levels = int(math.log(ratio, self.step_ratio))
         p, num_point, _ = xyz.shape
         max_np = min(num_point, self.max_num_point)
-        dev = xyz.device
         chain_kernel = (edgeconv.enabled_for(xyz)
                         and self.dense_n <= edgeconv.MAX_N
                         and self.growth_rate <= edgeconv.MAX_G)
+        stages = EAGER
+        if capture is None and Stages.graphed(xyz):
+            stages = self._stages.take(
+                (tuple(xyz.shape), ratio, xyz.device, chain_kernel),
+                partial(Stages, xyz.device))
 
         def level(l, *args, **kw):
             level_capture = None if capture is None else {}
             out = self.levels[f"level_{l}"](*args, chain_kernel=chain_kernel,
-                                            capture=level_capture, **kw)
+                                            capture=level_capture,
+                                            stages=stages, **kw)
             if capture is not None:
                 capture.update((f"level_{l}.{name}", t)
                                for name, t in level_capture.items())
             return out
 
+        # old_xyz / old_feats go to the next level; prev, the stages' own
+        # copy of old_xyz, and valid, which of the previous level's
+        # sub-patches are real, go to the next extract
         old_xyz = xyz
         with span("level1", on=xyz):
             xyz, old_feats = level(1, xyz, xyz)
-        prev_invalid = None
+        prev, valid = None, None
         for l in range(2, num_levels + 1):
             n_cur = xyz.shape[1]
+            n_sub = int(n_cur / max_np * 5)
+            n_lvl = max_np * self.levels[f"level_{l}"].code.shape[0]
             with span(f"level{l}", on=xyz):
-                if n_cur <= max_np:
-                    norm, centroid, radius = normalize_point_batch_cl(xyz)
-                    new_xyz, feats = level(l, xyz, norm, (old_xyz, old_feats))
-                    old_xyz, old_feats, prev_invalid = xyz, feats, None
-                    xyz = new_xyz * radius + centroid
-                    continue
-
-                n_sub = int(n_cur / max_np * 5)
+                if prev is None:
+                    xyz = stages.input(f"level{l}.extract.xyz", xyz)
+                    prev = stages.input(f"level{l}.extract.prev_xyz", old_xyz)
                 with span(f"level{l}.extract"):
-                    sub, true_sub = self._extract_patch_eval(xyz, max_np,
-                                                             n_sub)
-                    flat = sub.reshape(p * n_sub, max_np, 3)
-                    norm, centroid, radius = normalize_point_batch_cl(flat)
-                    # phantom previous rows must never be picked, like
-                    # duplicates
-                    prev_dup = duplicate_mask(old_xyz)
-                    if prev_invalid is not None:
-                        prev_dup = prev_dup | prev_invalid
+                    flat, norm, centroid, radius, prev_dup, valid, \
+                        merge_valid = stages(
+                            f"level{l}.extract",
+                            partial(self._extract, max_np, n_sub, n_lvl),
+                            xyz, prev, *(() if valid is None else (valid,)))
+                prev = flat.reshape(p, n_sub * max_np, 3)
+                flat, norm = stages.own(flat), stages.own(norm)
                 new_xyz, feats = level(l, flat, norm, (old_xyz, old_feats),
-                                       prev_group=n_sub, prev_dup=prev_dup)
-                new_xyz = new_xyz * radius + centroid
-                # merge the sub-patches of each top patch, then re-stitch
-                # by FPS over the real sub-patches only
-                patch_valid = (torch.arange(n_sub, device=dev)[None, :]
-                               < true_sub[:, None])            # (p, n_sub)
-                n_lvl = new_xyz.shape[1]
-                merged = new_xyz.reshape(p, n_sub * n_lvl, 3)
-                merge_valid = patch_valid[:, :, None].expand(
-                    p, n_sub, n_lvl).reshape(p, -1)
+                                       prev_group=n_sub,
+                                       prev_dup=stages.own(prev_dup))
+                # the sub-patches' outputs in their patch's frame, merged
+                # a patch
+                merged = stages.input(
+                    f"level{l}.merge_fps.merged",
+                    (new_xyz * radius + centroid).reshape(p, -1, 3))
                 with span(f"level{l}.merge_fps"):
-                    sel = _dispatch_fps(merged,
-                                        num_point * self.step_ratio ** l,
-                                        merge_valid)
-                    xyz = gather_nd(merged, sel)
+                    xyz = stages(f"level{l}.merge_fps",
+                                 partial(self._merge,
+                                         num_point * self.step_ratio ** l),
+                                 merged, merge_valid)
                 old_xyz = flat.reshape(p, n_sub * max_np, 3)
                 old_feats = feats.reshape(p, n_sub * max_np, -1)
-                prev_invalid = ~patch_valid[:, :, None].expand(
-                    p, n_sub, max_np).reshape(p, -1)
-        return xyz
+        return xyz if num_levels == 1 else stages.own(xyz)
+
+    def _extract(self, k: int, n_sub: int, n_lvl: int, xyz: torch.Tensor,
+                 prev_xyz: torch.Tensor,
+                 prev_valid: Optional[torch.Tensor] = None):
+        """A re-patching level's inputs from the last level's output
+        ``xyz (p, n, 3)`` and input ``prev_xyz (p, M, 3)``: the
+        sub-patches ``(p * n_sub, k, 3)`` (:meth:`_extract_patch_eval`),
+        normalized, with their centroids and radii; ``prev_dup (p, M)``,
+        duplicates of ``prev_xyz`` and rows of the sub-patches that
+        ``prev_valid (p, M / k)`` marks as phantoms; which of the
+        ``n_sub`` sub-patches are real, ``(p, n_sub)``, and which of
+        their ``n_lvl`` outputs each enter the merge, ``(p, n_sub *
+        n_lvl)``."""
+        p = xyz.shape[0]
+        sub, true_sub = self._extract_patch_eval(xyz, k, n_sub)
+        flat = sub.reshape(p * n_sub, k, 3)
+        norm, centroid, radius = normalize_point_batch_cl(flat)
+        # phantom previous rows must never be picked, like duplicates
+        prev_dup = duplicate_mask(prev_xyz)
+        if prev_valid is not None:
+            prev_dup = prev_dup | ~prev_valid[:, :, None].expand(
+                p, prev_valid.shape[1], k).reshape(p, -1)
+        valid = (torch.arange(n_sub, device=xyz.device)[None, :]
+                 < true_sub[:, None])
+        merge_valid = valid[:, :, None].expand(p, n_sub, n_lvl).reshape(p, -1)
+        return flat, norm, centroid, radius, prev_dup, valid, merge_valid
+
+    @staticmethod
+    def _merge(m: int, merged: torch.Tensor, merge_valid: torch.Tensor
+               ) -> torch.Tensor:
+        """The merged sub-patches of each patch re-stitched to ``m``
+        points by FPS over the real sub-patches only."""
+        return gather_nd(merged, _dispatch_fps(merged, m, merge_valid))
 
     def _extract_patch_eval(self, xyz: torch.Tensor, k: int, n_sub: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -140,9 +140,12 @@ def span(name: str, on=None):
     and end, and, on a CUDA device, a pair of timing events on that
     device's current stream.  ``on`` (a tensor or a device) names the
     device; by default a span takes its parent's.  An exception inside
-    the span closes it and goes on.
+    the span closes it and goes on.  Inside a CUDA graph's capture it
+    does nothing either: its events would belong to the graph, and the
+    graph's replays run no Python to record them.
     """
-    if not _profiler_enabled():
+    if not _profiler_enabled() or (torch.cuda.is_available() and
+                                   torch.cuda.is_current_stream_capturing()):
         return _OFF
     return _Span(name, on)
 
