@@ -58,7 +58,7 @@ no result line:
       the net).
    b. The pipeline: held-out shape 0 (5000 points) upsampled 16x to
       80,000 points, chunk 8, G=8 re-stitch, edge convs on the plain
-      chain (the toggle off; the kernel is the default).  The launch
+      chain (the kernel off; the kernel is the default).  The launch
       counts of the three kernels must be select 96, FPS 38, interlevel
       18 for that run (as before the capture of phase 7e existed), the
       output finite and (80000, 3), its Chamfer distance to the ground
@@ -67,19 +67,19 @@ no result line:
       when its input is perturbed by 1e-6 (relative): float rounding
       flips near-ties of the re-stitch FPS, so this band holds the port
       to the surface, and (a) to the numbers.
-   c. File to file, with the edge-conv toggle on: the same shape written
+   c. File to file, with the edge-conv kernel on: the same shape written
       to an ``.xyz`` file, ``threepu_torch.cli.main(["--phase", "test",
       ...])`` at the same configuration, the two ``.ply`` files read
       back.  The output must be finite, (80000, 3) and inside both
       Chamfer bands of (b), the input file the processed input, the
       edge-conv kernel launched 96 times (16 per chunk, 6 chunks) and
       select, FPS and interlevel above zero.  Then the warm seconds per
-      shape with the toggle on, beside (b)'s with it off.
+      shape with the kernel on, beside (b)'s with it off.
    d. Bucketing: ``upsample_shape(..., bucket=1024)`` (5000 points pad
-      to 5120), toggle off: finite, (80000, 3), Chamfer distance to the
+      to 5120), kernel off: finite, (80000, 3), Chamfer distance to the
       ground truth within 5% of the JAX package's.  With
       ``--profile-shapes SHAPES``, that many warm shapes then run under
-      ``torch.profiler`` with the toggle off and on: device time per
+      ``torch.profiler`` with the kernel off and on: device time per
       shape by kind of kernel, and the device's idle share.
 
 5. Training, at full width with the trained weights and the JAX
@@ -162,9 +162,9 @@ no result line:
       fixture's patch and its bands, edge convs decomposed then fused.
    b. The same weights as ``.npz`` through ``cli.main(["--phase", "test",
       "--step_ratio", "4", ...])`` on shape 0, 5000 -> 80,000, chunk 8,
-      G=8, the edge-conv toggle on: finite, (80000, 3), Chamfer distance
+      G=8, the edge-conv kernel on: finite, (80000, 3), Chamfer distance
       to the ground truth within 5% of JAX's; select, FPS, interlevel and
-      48 edge-conv launches.  The warm s/shape, toggle off, beside 4b's.
+      48 edge-conv launches.  The warm s/shape, kernel off, beside 4b's.
    c. Its train step at full width, 16 x 312: at ratio 4 on JAX's batch,
       the loss within 1e-5 (relative) of JAX's and each gradient tensor
       within 0.1 (relative L2); then 5 clipped-Adam steps at ratio 16 on
@@ -175,7 +175,7 @@ no result line:
       output and global features within 1e-4 of JAX's, and of the port on
       the CPU, on 99% of the rows; select and FPS launched.
    e. ``cli.main(["--phase", "vis", ...])`` with the trained weights,
-      16x, the edge-conv toggle on, ``Painter.interactive_3D_plot``
+      16x, the edge-conv kernel on, ``Painter.interactive_3D_plot``
       patched to record its arguments (the card's machine has no
       matplotlib): 16 kNN graphs, each within its own level's input cloud;
       level 1's for the first 8 patches hold JAX's neighbour sets on 99%
@@ -741,7 +741,7 @@ def check_edgeconv(dev, g, card: str) -> dict:
               f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{rep['bound_ms']:.4f} ms ({rep['bound_by']}); wrapper "
               f"{host_us:.2f} us of host a call; {per_shape} launches per "
-              f"16x shape with the toggle on [{card}]", flush=True)
+              f"16x shape with the kernel on [{card}]", flush=True)
     torch.cuda.empty_cache()
     return rep
 
@@ -983,12 +983,20 @@ def run_shape(net, fx, **kwargs):
     return out
 
 
-def plain_chain():
-    """The eval cascade's edge convs on the plain PyTorch chain
-    (``ops.edgeconv.ENABLED`` off; the kernel is the default), for the
-    runs held beside the kernel's."""
+@contextlib.contextmanager
+def plain_chain(net):
+    """``net``'s eval cascade with its edge convs on the plain PyTorch
+    chain (``ops.edgeconv.takes_kernel`` says no; the kernel is the
+    default), for the runs held beside the kernel's.  The net's graphs,
+    captured on one route, are dropped on entry and on exit."""
     import threepu_torch.ops.edgeconv as ec_mod
-    return mock.patch.object(ec_mod, "ENABLED", False)
+    net._stages.clear()
+    try:
+        with mock.patch.object(ec_mod, "takes_kernel",
+                               lambda x, n, g: False):
+            yield
+    finally:
+        net._stages.clear()
 
 
 def warm_shape_s(net, fx, **kwargs) -> tuple:
@@ -1017,7 +1025,7 @@ def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
     """Phase 4b: the 16x pipeline on held-out shape 0, edge convs on the
     plain chain; returns the launch count of each kernel in the checked
     run, the warm seconds per shape and the checked run's output."""
-    with plain_chain():
+    with plain_chain(net):
         t0 = time.perf_counter()
         run_shape(net, fx)                           # first run: warm-up
         first_s = time.perf_counter() - t0
@@ -1041,9 +1049,9 @@ def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
 
 def file_to_file(net, fx, card: str, kernels: dict, off_s: float) -> dict:
     """Phase 4c: the fixture's shape from an ``.xyz`` file to ``.ply``
-    files through ``threepu_torch.cli.main``, the edge-conv toggle on;
+    files through ``threepu_torch.cli.main``, the edge-conv kernel on;
     returns the launch count of each kernel in that run.  ``net`` and
-    ``off_s`` (phase 4b's warm seconds per shape, toggle off) serve the
+    ``off_s`` (phase 4b's warm seconds per shape, kernel off) serve the
     timing that follows."""
     import tempfile
     from threepu_torch import cli
@@ -1085,11 +1093,11 @@ def file_to_file(net, fx, card: str, kernels: dict, off_s: float) -> dict:
 
 def bucketed(net, fx, card: str) -> None:
     """Phase 4d: the fixture's shape through ``bucket=1024`` (5000 points
-    pad to 5120), toggle off.  The padded distance matrices round apart
+    pad to 5120), kernel off.  The padded distance matrices round apart
     from the exact-size run's and flip near-ties, so the output is held
     to the ground truth, not to the JAX output."""
     t0 = time.perf_counter()
-    with plain_chain():
+    with plain_chain(net):
         out = run_shape(net, fx, bucket=1024)
     print(f"bucketed run {time.perf_counter() - t0:.3f} s [{card}]",
           flush=True)
@@ -1099,10 +1107,9 @@ def bucketed(net, fx, card: str) -> None:
 
 def profile_shapes(net, fx, shapes: int, card: str) -> None:
     """``shapes`` warm 16x shapes under ``torch.profiler``, the edge-conv
-    toggle off and then on (:func:`profile_steps`)."""
-    import threepu_torch.ops.edgeconv as ec_mod
+    kernel off and then on (:func:`profile_steps`)."""
     for on in (False, True):
-        with mock.patch.object(ec_mod, "ENABLED", on):
+        with contextlib.nullcontext() if on else plain_chain(net):
             best, _ = warm_shape_s(net, fx)
             print(f"16x shape, edge-conv kernel {'on' if on else 'off'}:",
                   flush=True)
@@ -1993,9 +2000,9 @@ def step4_file_to_file(net4, fx, sfx, card: str, kernels: dict,
                        off_s: float) -> dict:
     """Phase 7b: the fixture's shape through ``cli.main(["--phase",
     "test", "--step_ratio", "4", ...])`` with the step-4 weights written
-    as ``.npz``, the edge-conv toggle on: (80000, 3), finite, Chamfer
+    as ``.npz``, the edge-conv kernel on: (80000, 3), finite, Chamfer
     distance to the ground truth within 5% of JAX's.  Then the warm
-    seconds per shape, toggle off, beside phase 4b's ``off_s``.  Returns
+    seconds per shape, kernel off, beside phase 4b's ``off_s``.  Returns
     the launch count of each kernel in the command line's run."""
     import tempfile
     import torch
@@ -2042,7 +2049,7 @@ def step4_file_to_file(net4, fx, sfx, card: str, kernels: dict,
     if abs(cd_gt - jax_cd) > 0.05 * jax_cd:
         raise AssertionError("step-4: chamfer to gt is not within 5% of "
                              "JAX's")
-    with plain_chain():
+    with plain_chain(net4):
         best, times = warm_shape_s(net4, fx)
     print(f"step-4 16x warm s/shape, edge-conv kernel off {best:.4f} (runs "
           f"{[round(t, 4) for t in times]}); step-2 net {off_s:.4f} (phase "
@@ -2201,7 +2208,7 @@ def recomputed_graph_share(net, cap: dict, level: int, i: int) -> float:
 
 def vis_phase_check(fx, sfx, card: str, kernels: dict) -> dict:
     """Phase 7e: ``cli.main(["--phase", "vis", ...])`` with the trained
-    weights on the fixture's shape at 16x, the edge-conv toggle on and
+    weights on the fixture's shape at 16x, the edge-conv kernel on and
     ``Painter.interactive_3D_plot`` patched to record its arguments (the
     card's machine has no matplotlib): 16 graphs, each with its own
     level's input cloud, every index inside it; level 1's graphs of the
@@ -2451,7 +2458,7 @@ def rank_eval(mesh, fx) -> dict:
     t0 = time.perf_counter()
     run_shape(net, fx, mesh=mesh)
     first_s = time.perf_counter() - t0
-    with plain_chain():
+    with plain_chain(net):
         with counted(mesh, kernels) as off:
             out = run_shape(net, fx, mesh=mesh)
         best, times = warm_shape_s(net, fx, mesh=mesh)
@@ -2890,7 +2897,7 @@ def multi_gpu(fx, card: str, serial_out, off_s: float, bare_ms: float,
     ``nccl``, each rank a process of ``parallel.launch.spawn``: 8a-8c at
     world size 1, 8d across cards where 2 or more are visible.  Returns
     the launch count of each kernel on the paths of rank 0 at world size
-    1: ``sharded_eval`` (8a, toggle off), ``sharded_eval_on`` (toggle
+    1: ``sharded_eval`` (8a, kernel off), ``sharded_eval_on`` (kernel
     on), ``sharded_train`` (8b) and ``sharded_loop`` (8c)."""
     import tempfile
     import torch

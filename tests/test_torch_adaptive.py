@@ -3,6 +3,7 @@ the JAX package's on the CPU: same seeded numpy inputs, JAX's float32
 initial parameters carried over by ``state_dict_from_jax``.  Each
 tolerance is stated where it is used."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ without a card (``python -m pytest tests/test_torch_cascade_graphs.py -q
 --noconftest`` on a GPU machine).
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import collections
 from functools import partial
 
@@ -20,8 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-import threepu_torch.models.punet as punet_mod
-import threepu_torch.models.upsampler as up_mod
 import threepu_torch.ops.edgeconv as tec
 import threepu_torch.ops.fps as tfps
 import threepu_torch.ops.interlevel as til
@@ -30,7 +29,7 @@ from threepu_torch._build import Kernel
 from threepu_torch.inference import (cut_patches, plan_patches,
                                      upsample_shape)
 from threepu_torch.models import Net, PUNet, load_net
-from threepu_torch.models.graphs import EAGER, Stages, StageSets
+from threepu_torch.models.graphs import EAGER, GraphedNet, Stages, StageSets
 from threepu_torch.ops.normalize import normalize_point_batch_cl
 
 ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
@@ -200,7 +199,7 @@ def test_emulated_graphs_equal_the_eager_cascade(monkeypatch, step):
     xs = small_chunks(f"step{step}")
     xs = xs + xs[:1]
     want = [net.upsample(x) for x in xs]
-    monkeypatch.setattr(up_mod, "Stages", FakeStages)
+    monkeypatch.setattr(GraphedNet, "stage_class", FakeStages)
     got = [net.upsample(x) for x in xs]
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -223,7 +222,7 @@ def test_emulated_graphs_leave_what_callers_keep(monkeypatch, step):
     chunk's output, across later chunks finds them unchanged; no output
     shares storage with another or with the graphs."""
     net = small_net(f"step{step}")
-    monkeypatch.setattr(up_mod, "Stages", FakeStages)
+    monkeypatch.setattr(GraphedNet, "stage_class", FakeStages)
     rec = keep_level_calls(net)
     xs = small_chunks(f"step{step}")
     xs = xs + xs[:1]
@@ -250,16 +249,44 @@ def test_emulated_graphs_leave_what_callers_keep(monkeypatch, step):
 
 
 def test_a_stage_replayed_on_other_tensors_raises():
+    """A replay whose arguments stage elsewhere than the capture's (here
+    a stage's output in place of a copy), come in another number or in
+    another shape raises."""
     run = FakeStages("cpu")
     a, b = torch.ones(3), torch.ones(3)
     run("double", lambda t: 2 * t, a)
+    out = run("half", lambda t: t / 2, b)
     with pytest.raises(RuntimeError, match="captured on other tensors"):
-        run("double", lambda t: 2 * t, b)
+        run("double", lambda t: 2 * t, out)
     with pytest.raises(RuntimeError, match="captured on other tensors"):
         run("double", lambda t, u: 2 * t, a, b)
-    with pytest.raises(RuntimeError, match="graph input x"):
-        run.input("x", a)
-        run.input("x", torch.ones(4))
+    with pytest.raises(RuntimeError, match="graph input 0 of double"):
+        run("double", lambda t: 2 * t, torch.ones(4))
+
+
+def test_a_stage_copies_an_outside_tensor_once_and_passes_graph_outputs():
+    """A tensor from outside the graphs is copied into a static input
+    once a set: a later stage given it, unchanged, reads that copy, and
+    one given it changed copies it anew.  A stage's output, or a view of
+    one, passes into the next stage as it is."""
+    run = FakeStages("cpu")
+    x = torch.arange(6.0)
+    y = run("add", lambda t: t + 1, x)
+    (staged,) = run.graphs["add"].args
+    assert staged.data_ptr() != x.data_ptr() and torch.equal(staged, x)
+    assert list(run._inputs) == [("add", 0)]
+    z = run("mul", lambda t, u, v: t * u.sum() + v.sum(), y, y[3:], x[3:])
+    args = run.graphs["mul"].args
+    assert args[0] is y and args[1].data_ptr() == y[3:].data_ptr()
+    assert args[2] is run._inputs[("mul", 2)] and len(run._inputs) == 2
+    w = run("sub", lambda t, u: t - u, z, x)
+    assert run.graphs["sub"].args[1] is staged and len(run._inputs) == 2
+    assert torch.equal(w, z - x)
+    x.add_(1)
+    run("neg", lambda t: -t, x)
+    assert run.graphs["neg"].args[0] is run._inputs[("neg", 0)]
+    assert torch.equal(run._inputs[("neg", 0)], x)
+    assert torch.equal(staged, torch.arange(6.0))
 
 
 def test_replays_count_the_captured_launches():
@@ -274,7 +301,7 @@ def test_replays_count_the_captured_launches():
             return t + 1
 
         run = FakeStages("cpu")
-        x = run.input("x", torch.zeros(2))
+        x = torch.zeros(2)
         for i in range(3):
             assert torch.equal(run("stage", stage, x), torch.ones(2))
             assert (k1.launches, k2.launches) == (2 * (i + 1), i + 1)
@@ -340,19 +367,15 @@ def test_chunk_shapes_keep_one_set_and_a_shape_seen_once_runs_as_written(
     outputs equal the eager ones bit for bit."""
     if arch == "3pu":
         net = small_net("step2")
-        monkeypatch.setattr(up_mod, "Stages", FakeStages)
         a, b, c = small_chunks("step2")
         xs = [a, b, a[:3], c, a[:2], b[:2], a[:1], c[:2]]
     else:
         torch.manual_seed(0)
         net = PUNet(num_point=64).eval()
-        monkeypatch.setattr(punet_mod, "Stages", FakeStages)
         a, b, c, d, e, f = _punet_chunks()
         xs = [a, b, f, c, d, e, a[:1], d]
-    with monkeypatch.context() as m:
-        m.setattr(up_mod, "Stages", Stages)
-        m.setattr(punet_mod, "Stages", Stages)
-        want = [net.upsample(x) for x in xs]
+    want = [net.upsample(x) for x in xs]
+    monkeypatch.setattr(GraphedNet, "stage_class", FakeStages)
     held = []
     for x, w in zip(xs, want):
         assert torch.equal(net.upsample(x), w)
@@ -366,10 +389,15 @@ def test_chunk_shapes_keep_one_set_and_a_shape_seen_once_runs_as_written(
     assert set(run.replays.values()) == {2}
 
 
-def test_to_drops_the_graphs_and_the_next_call_captures_anew(monkeypatch):
-    net = small_net("step2")
-    monkeypatch.setattr(up_mod, "Stages", FakeStages)
-    x = small_chunks("step2")[0]
+@pytest.mark.parametrize("arch", ["3pu", "punet"])
+def test_to_drops_the_graphs_and_the_next_call_captures_anew(monkeypatch,
+                                                             arch):
+    if arch == "3pu":
+        net, x = small_net("step2"), small_chunks("step2")[0]
+    else:
+        torch.manual_seed(0)
+        net, x = PUNet(num_point=64).eval(), _punet_chunks()[0]
+    monkeypatch.setattr(GraphedNet, "stage_class", FakeStages)
     first = net.upsample(x)
     assert torch.equal(net.upsample(x), first)
     (old,) = net._stages.values()
@@ -384,7 +412,7 @@ def test_to_drops_the_graphs_and_the_next_call_captures_anew(monkeypatch):
 
 def test_the_train_cascade_takes_no_graphs(monkeypatch):
     net = small_net("step2").train()
-    monkeypatch.setattr(up_mod, "Stages", FakeStages)
+    monkeypatch.setattr(GraphedNet, "stage_class", FakeStages)
     x = small_chunks("step2")[0]
     gt = torch.from_numpy(surface(4 * 256, 5).reshape(4, 256, 3))
     with torch.no_grad():

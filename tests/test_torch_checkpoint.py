@@ -8,6 +8,7 @@ The net is ``tests/test_train.py``'s tiny one (knn 4, growth 4, dense 2,
 ``artifacts/prod_clean_final.npz``'s 321 Adam leaves and fingerprint.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import contextlib
 import functools
 import unittest.mock as mock

@@ -3,6 +3,7 @@ package's (``threepu.cli``): the same flags, the same result paths, and a
 tiny file-to-file ``--phase test`` run on the CPU on the same checkpoint
 and input file."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import argparse
 import os
 

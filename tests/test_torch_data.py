@@ -8,6 +8,7 @@ generated arrays must equal JAX's bit for bit; batches, cut from the same
 draws (JAX's pinned by patching ``jax.random``), to 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import contextlib
 import io
 import shutil

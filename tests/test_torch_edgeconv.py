@@ -1,11 +1,12 @@
 """The port's fused edge-conv chain held against the JAX package on the
 CPU: the plain version against ``edge_conv_chain_pallas`` in interpret
 mode, ``DenseEdgeConv`` with the chain flag against JAX's ``pallas=True``,
-and the eval cascade with the toggle on against JAX's with the kernel
+and the eval cascade routed to the kernel against JAX's with the kernel
 forced.  On CPU tensors the wrapper runs its plain version; the CUDA
 kernel itself is held to it in ``tests/test_torch_kernels_cuda.py``.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +25,9 @@ from threepu_torch.models import DenseEdgeConv, Net
 #: JAX's kernel gathers through a bf16 hi/lo split of z, which carries
 #: about 2^-16 relative error; the port's gather is exact
 ATOL, RTOL = 5e-5, 1e-5
+
+#: what the route sees of a CUDA tensor
+CUDA_LIKE = type("T", (), {"is_cuda": True})()
 
 
 @pytest.fixture(autouse=True)
@@ -139,8 +143,8 @@ def test_dense_edge_conv_chain_flag_matches_jax(rng, n, g, k):
 
 
 def test_upsample_with_toggle_matches_jax_forced(rng, monkeypatch):
-    """``Net.upsample`` at ratio 4 with the port's toggle on against JAX's
-    cascade with its kernel enabled and forced (interpret mode).  JAX's
+    """``Net.upsample`` at ratio 4 routed to the port's kernel against
+    JAX's cascade with its kernel enabled and forced (interpret mode).  JAX's
     hi/lo gather rounding can flip kNN and FPS near-ties, so JAX's own
     criterion holds (tests/test_edgeconv_pallas.py): over 98% of the rows
     within 5e-4, and every patch within a Chamfer distance of 1e-5."""
@@ -165,14 +169,14 @@ def test_upsample_with_toggle_matches_jax_forced(rng, monkeypatch):
         calls.append(args[0].shape[0])
         return chain(*args)
 
-    # the toggle alone leaves a CPU tensor on the decomposed path
-    monkeypatch.setattr(tec, "ENABLED", True)
+    # a CPU tensor takes the plain chain
     monkeypatch.setattr("threepu_torch.models.layers.edge_conv_chain", counted)
-    assert not tec.enabled_for(torch.from_numpy(xyz))
+    assert not tec.takes_kernel(torch.from_numpy(xyz), tnet.dense_n,
+                                tnet.growth_rate)
     base = tnet.upsample(torch.from_numpy(xyz), 4).numpy()
     assert not calls
     # so say that this device takes it: the wrapper runs its plain version
-    monkeypatch.setattr(tec, "enabled_for", lambda tensor: tec.ENABLED)
+    monkeypatch.setattr(tec, "takes_kernel", lambda x, n, g: True)
     got = tnet.upsample(torch.from_numpy(xyz), 4).numpy()
     assert len(calls) == 8 and calls[0] == 2 and calls[-1] > 2
     np.testing.assert_allclose(got, base, atol=1e-5)
@@ -185,12 +189,12 @@ def test_upsample_with_toggle_matches_jax_forced(rng, monkeypatch):
 
 
 def test_train_cascade_never_takes_the_chain_kernel(rng, monkeypatch):
-    """``Net.forward``'s train cascade keeps the decomposed path, toggle
-    or not: the kernel has no backward."""
+    """``Net.forward``'s train cascade keeps the decomposed path, whatever
+    the route says: the kernel has no backward."""
     def refuse(*args):
         raise AssertionError("the train cascade called edge_conv_chain")
 
-    monkeypatch.setattr(tec, "enabled_for", lambda tensor: True)
+    monkeypatch.setattr(tec, "takes_kernel", lambda x, n, g: True)
     monkeypatch.setattr("threepu_torch.models.layers.edge_conv_chain", refuse)
     net = Net(max_up_ratio=4, knn=6, max_num_point=48, growth_rate=4,
               dense_n=2)
@@ -209,7 +213,7 @@ def test_train_cascade_under_no_grad_never_takes_the_chain_kernel(
     def refuse(*args):
         raise AssertionError("the train cascade called edge_conv_chain")
 
-    monkeypatch.setattr(tec, "enabled_for", lambda tensor: True)
+    monkeypatch.setattr(tec, "takes_kernel", lambda x, n, g: True)
     monkeypatch.setattr("threepu_torch.models.layers.edge_conv_chain", refuse)
     net = Net(max_up_ratio=4, knn=6, max_num_point=48, growth_rate=4,
               dense_n=2).eval()
@@ -220,15 +224,16 @@ def test_train_cascade_under_no_grad_never_takes_the_chain_kernel(
     assert pred.shape == (2, 96, 3)
 
 
-def test_enabled_for_needs_the_toggle_and_a_cuda_tensor(monkeypatch):
-    """On by default: a CUDA tensor takes the kernel, a CPU tensor never;
-    ``ENABLED = False`` sends both to the plain chain."""
-    assert tec.ENABLED is True
-    cpu = torch.zeros(1)
-    fake_cuda = type("T", (), {"is_cuda": True})()
-    assert not tec.enabled_for(cpu) and tec.enabled_for(fake_cuda)
-    monkeypatch.setattr(tec, "ENABLED", False)
-    assert not tec.enabled_for(cpu) and not tec.enabled_for(fake_cuda)
+@pytest.mark.parametrize("cuda,n,g,routed", [
+    (False, 3, 12, False), (True, 3, 12, True), (True, 4, 32, True),
+    (True, 5, 4, False), (True, 2, 33, False)],
+    ids=["cpu", "cuda", "cuda-widest", "cuda-n5", "cuda-g33"])
+def test_the_kernel_takes_a_cuda_tensor_of_the_widths_it_is_built_for(
+        cuda, n, g, routed):
+    """A CUDA tensor takes the kernel where ``n <= 4`` and ``g <= 32``; a
+    CPU tensor never does."""
+    x = CUDA_LIKE if cuda else torch.zeros(1)
+    assert tec.takes_kernel(x, n, g) is routed
 
 
 @pytest.mark.parametrize("dense_n,growth_rate,routed",
@@ -236,10 +241,10 @@ def test_enabled_for_needs_the_toggle_and_a_cuda_tensor(monkeypatch):
                          ids=["n5", "g33", "widest"])
 def test_upsample_routes_by_the_nets_widths(rng, monkeypatch, dense_n,
                                             growth_rate, routed):
-    """Where ``enabled_for`` says yes, ``Net.upsample`` takes the kernel
-    only for nets it is instantiated for (``dense_n <= 4``, ``growth_rate
-    <= 32``); a wider net runs on the plain chain and does not raise (the
-    wrapper refuses ``n = 5`` and ``g = 33``).  Either way the output is
+    """On a card, ``Net.upsample`` takes the kernel only for nets it is
+    instantiated for (``dense_n <= 4``, ``growth_rate <= 32``); a wider
+    net runs on the plain chain and does not raise (the wrapper refuses
+    ``n = 5`` and ``g = 33``).  Either way the output is
     the plain route's."""
     calls = []
     chain = tec.edge_conv_chain
@@ -253,10 +258,12 @@ def test_upsample_routes_by_the_nets_widths(rng, monkeypatch, dense_n,
     net = Net(max_up_ratio=4, knn=6, max_num_point=48,
               growth_rate=growth_rate, dense_n=dense_n).eval()
     x = torch.from_numpy(rng.standard_normal((2, 48, 3)).astype(np.float32))
-    monkeypatch.setattr(tec, "enabled_for", lambda tensor: False)
     want = net.upsample(x, 4)
     assert not calls
-    monkeypatch.setattr(tec, "enabled_for", lambda tensor: True)
+    # say that this device is a card: the route still asks the widths
+    route = tec.takes_kernel
+    monkeypatch.setattr(tec, "takes_kernel",
+                        lambda x, n, g: route(CUDA_LIKE, n, g))
     got = net.upsample(x, 4)
     assert calls == ([(dense_n, growth_rate)] * 8 if routed else [])
     assert got.shape == (2, 192, 3)

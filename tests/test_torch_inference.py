@@ -2,6 +2,7 @@
 the CPU, plus the port's build/launch plumbing and ``chip_smoke.py``'s
 refusal to run without a GPU."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import importlib.util
 import os
 import shutil

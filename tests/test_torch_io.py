@@ -4,6 +4,7 @@ package's: the files the two write are byte-identical, each side reads
 the other's, and ``load`` pads or downsamples alike when numpy's global
 generator starts from the same seed on both sides."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import numpy as np
 import pytest
 

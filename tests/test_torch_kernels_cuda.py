@@ -7,6 +7,7 @@ machine with ``python -m pytest tests/test_torch_kernels_cuda.py -q
 ``chip_smoke.py`` repeats the comparisons at the pipeline's full shapes.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import numpy as np
 import pytest
 import torch
@@ -547,10 +548,10 @@ def test_edge_conv_chain_kernel_rejects_what_it_does_not_take(dev, gen):
 
 
 def test_pipeline_with_the_chain_kernel_on_gpu(dev, monkeypatch):
-    """The golden-scale pipeline on the GPU, no toggle set: the edge-conv
-    kernel by default, 8 chain launches per chunk (2 levels x 4 convs),
-    and the output of the run with the toggle off (the plain chain) to
-    float32 rounding."""
+    """The golden-scale pipeline on the GPU: the edge-conv kernel, 8
+    chain launches per chunk (2 levels x 4 convs), and the output of the
+    run routed to the plain chain (its graphs dropped) to float32
+    rounding."""
     from threepu_torch.inference import upsample_point_cloud
     from threepu_torch.models import Net
     torch.manual_seed(0)
@@ -563,7 +564,8 @@ def test_pipeline_with_the_chain_kernel_on_gpu(dev, monkeypatch):
     before = tec.KERNEL.launches
     got = upsample_point_cloud(net, xyz, 4, 32, 384, chunk=4)
     assert tec.KERNEL.launches == before + 8 * 3      # 9 patches pad to 12
-    monkeypatch.setattr(tec, "ENABLED", False)
+    monkeypatch.setattr(tec, "takes_kernel", lambda x, n, g: False)
+    net._stages.clear()
     want = upsample_point_cloud(net, xyz, 4, 32, 384, chunk=4)
     assert tec.KERNEL.launches == before + 8 * 3
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -572,11 +574,11 @@ def test_pipeline_with_the_chain_kernel_on_gpu(dev, monkeypatch):
 
 def test_default_16x_upsample_takes_the_chain_kernel(dev, monkeypatch):
     """A default 16x net's ``Net.upsample`` of one chunk (8 patches of 312
-    points), no toggle set: 16 edge-conv launches (4 levels x 4 convs),
-    and the same call on the plain chain (``ENABLED = False``) within the
-    benchmark's row band: at most 1% of the rows off by more than 1e-4.
-    The kernel sums as the plain chain does, so no kNN or FPS pick of a
-    later stage flips against it."""
+    points): 16 edge-conv launches (4 levels x 4 convs), and the same
+    call routed to the plain chain within the benchmark's row band: at
+    most 1% of the rows off by more than 1e-4.  The kernel sums as the
+    plain chain does, so no kNN or FPS pick of a later stage flips
+    against it."""
     from threepu_torch.models import Net
     torch.manual_seed(0)
     net = Net().eval().to(dev)
@@ -586,7 +588,7 @@ def test_default_16x_upsample_takes_the_chain_kernel(dev, monkeypatch):
     before = tec.KERNEL.launches
     got = net.upsample(xyz)
     assert tec.KERNEL.launches == before + 16
-    monkeypatch.setattr(tec, "ENABLED", False)
+    monkeypatch.setattr(tec, "takes_kernel", lambda x, n, g: False)
     want = net.upsample(xyz)
     assert tec.KERNEL.launches == before + 16
     assert got.shape == want.shape == (8, 312 * 16, 3)

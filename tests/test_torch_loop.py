@@ -9,6 +9,7 @@ from one JAX-written full-state checkpoint; JAX's batches are recorded
 and fed to the port.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import dataclasses
 import sys
 import types

@@ -2,6 +2,7 @@
 on the CPU: same inputs (seeded numpy), same weights (the flax params
 converted by ``state_dict_from_jax``, or the trained checkpoint)."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import h5py
 import jax
 import jax.numpy as jnp

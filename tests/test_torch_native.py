@@ -4,6 +4,7 @@ numpy oracles; the port's text loader and host downsampling on it, and
 their numpy fallback when the library cannot be built.  Skipped without a
 C++ toolchain, as ``tests/test_native.py`` is."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import shutil
 
 import numpy as np

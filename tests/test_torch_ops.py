@@ -9,6 +9,7 @@ Selections (indices) must match exactly; each value tolerance is stated
 where it is used.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import unittest.mock as mock
 
 import jax

@@ -14,6 +14,7 @@ the same float32 weights through ``io.weights``.  Each tolerance is
 stated where it is used.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import concurrent.futures
 import contextlib
 import unittest.mock as mock

@@ -2,6 +2,7 @@
 ``torch.profiler`` trace of the command line, and the spans the eval
 path records while a profiler records, on the CPU at tiny sizes."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import json
 import os
 import re

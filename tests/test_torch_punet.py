@@ -3,6 +3,7 @@ against its plain reference (``threepu_torch/reference/punet.py``), on the
 CPU at a small size: patches of 64 points, seeded weights, every width as
 published."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import subprocess
 import sys
 from pathlib import Path

@@ -5,6 +5,7 @@ against the JAX package's functions of the same names on the CPU, on the
 same seeded numpy inputs, in the reference's NCHW layout and
 channels-last.  Each tolerance is stated where it is used."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ initial parameters, carried over by ``state_dict_from_jax``.  Each
 tolerance is stated where it is used.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import contextlib
 import math
 import unittest.mock as mock

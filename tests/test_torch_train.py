@@ -11,6 +11,7 @@ converted by ``state_dict_from_jax``).  Each tolerance is stated where
 it is used.
 """
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import contextlib
 import importlib.util
 import math

@@ -6,6 +6,7 @@ recorded, and ``compat.pc_prediction`` / ``get_stage_progress``.  The
 nets carry JAX's float32 initial parameters; each tolerance is stated
 where it is used."""
 
+import torch_threads  # noqa: F401  (first: sets torch's threads)
 import types
 import unittest.mock as mock
 

@@ -1,6 +1,6 @@
 """CUDA graphs over a net's eval stages: :class:`Stages`, one set for
-one input shape on one device, and :class:`StageSets`, the one set a net
-holds.
+one input shape on one device, and :class:`GraphedNet`, the base of the
+eval nets, which holds one set (:class:`StageSets`).
 
 On a CUDA device each stage, a function of tensors, is captured as a
 CUDA graph at its first call and replayed at every later one, so a
@@ -8,29 +8,27 @@ chunk's hundreds of small launches become a few dozen replays and the
 host no longer sets its pace.  The kernels are the same as eager; only
 how they are launched changes.  On the CPU every stage runs as written.
 
-A stage takes static inputs (:meth:`Stages.input`, a copy of a tensor
-from outside the graphs) or earlier stages' outputs, which belong to the
-graphs: the same storage on every call, overwritten by the next replay.
-Whatever leaves the graphs for code that may keep it goes through
-:meth:`Stages.own`, a copy.
+A stage passes an earlier stage's output (or a view of one) as it is and
+copies any other tensor into a static input, once a set: a later stage
+given the same tensor, unchanged, reads that copy.  Outputs belong to
+the graphs, overwritten by the next replay; whatever leaves them for
+code that may keep it goes through :meth:`Stages.own`, a copy.
 
 ``Kernel.launches`` counts Python calls, and a replay makes none: a
 capture records each kernel's launches, and every replay adds them.  The
 run before a capture and the capture itself count nothing, so a chunk
 counts the launches of one eager run whether it captured or replayed.
-
-A net keeps at most one set (:class:`StageSets`), captured when two calls
-in a row ask for the same key: a shape seen once runs eagerly
-(:data:`EAGER`) and costs no capture, and a shape that repeats replaces
-the set held, so the graphs' memory does not grow with the shapes seen.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Callable, Dict, Hashable, NamedTuple, Optional, Tuple
+import weakref
+from functools import partial
+from typing import Callable, Dict, Hashable, NamedTuple, Optional, Set, Tuple
 
 import torch
+from torch import nn
 
 from threepu_torch._build import Kernel
 
@@ -63,7 +61,11 @@ class Stages:
         self.graphs: Dict[str, _Graph] = {}
         self.captures: collections.Counter = collections.Counter()
         self.replays: collections.Counter = collections.Counter()
-        self._inputs: Dict[str, torch.Tensor] = {}
+        # static inputs by (stage, position), what each holds a copy of,
+        # and the storage of the static inputs and captured outputs
+        self._inputs: Dict[Tuple[str, int], torch.Tensor] = {}
+        self._sources: Dict[Tuple[str, int], Optional[tuple]] = {}
+        self._held: Set[int] = set()
         if self.cuda:
             with torch.cuda.device(self.device):
                 self.pool = torch.cuda.graph_pool_handle()
@@ -74,32 +76,46 @@ class Stages:
         device."""
         return t.is_cuda
 
-    def input(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """``t`` as the static input ``name``: on a CUDA device a copy in
-        storage of its own that every call of that name overwrites."""
-        if not self.cuda:
-            return t.contiguous()
-        buf = self._inputs.get(name)
-        if buf is None:
-            buf = self._inputs[name] = torch.empty(
-                t.shape, dtype=t.dtype, device=self.device)
-        elif buf.shape != t.shape or buf.dtype != t.dtype:
-            raise RuntimeError(f"graph input {name} was {tuple(buf.shape)} "
-                               f"{buf.dtype}; got {tuple(t.shape)} {t.dtype}")
-        buf.copy_(t)
-        return buf
-
     def own(self, t: torch.Tensor) -> torch.Tensor:
         """A stage's output as the caller's own: a copy on a CUDA device,
         which no later replay overwrites."""
         return t.clone() if self.cuda else t
 
+    def _static(self, name: str, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Argument ``i`` of stage ``name`` in storage of this set: ``t``
+        where the storage is the set's; else the static input an earlier
+        stage copied ``t`` into, where ``t`` has not changed since; else
+        ``t`` copied into the static input ``(name, i)``."""
+        if t.untyped_storage().data_ptr() in self._held:
+            return t
+        for key, src in self._sources.items():
+            if src is not None and src[0]() is t and src[1] == t._version:
+                return self._inputs[key]
+        key = (name, i)
+        buf = self._inputs.get(key)
+        if buf is None:
+            buf = self._inputs[key] = torch.empty(
+                t.shape, dtype=t.dtype, device=self.device)
+            self._held.add(buf.untyped_storage().data_ptr())
+        elif buf.shape != t.shape or buf.dtype != t.dtype:
+            raise RuntimeError(f"graph input {i} of {name} was "
+                               f"{tuple(buf.shape)} {buf.dtype}; got "
+                               f"{tuple(t.shape)} {t.dtype}")
+        buf.copy_(t)
+        # an inference tensor counts no versions: copied at every call
+        self._sources[key] = None if t.is_inference() else (
+            weakref.ref(t), t._version)
+        return buf
+
     def __call__(self, name: str, fn: Callable, *args: torch.Tensor):
         """``fn(*args)``: on a CUDA device captured at the first call of
-        ``name`` and replayed at every later one, which must pass the
-        same tensors."""
+        ``name`` and replayed at every later one, on the arguments as
+        :meth:`_static` stages them, the same tensors at every call
+        (contiguous, on the CPU).  ``fn`` returns a tensor or a tuple of
+        tensors."""
         if not self.cuda:
-            return fn(*args)
+            return fn(*(a.contiguous() for a in args))
+        args = tuple(self._static(name, i, a) for i, a in enumerate(args))
         got = self.graphs.get(name)
         if got is not None and (len(args) != len(got.args) or any(
                 a.data_ptr() != b.data_ptr() for a, b in zip(args, got.args))):
@@ -118,6 +134,8 @@ class Stages:
                     kernel.launches = n
             got = self.graphs[name] = _Graph(graph, args, out, launched)
             self.captures[name] += 1
+            self._held.update(t.untyped_storage().data_ptr() for t in (
+                out if isinstance(out, tuple) else (out,)))
         got.graph.replay()
         for kernel, n in got.launched.items():
             kernel.launches += n
@@ -150,8 +168,9 @@ class StageSets(dict):
     """A net's graphs: at most one :class:`Stages`, under the key it was
     captured for (input shape, device and whatever else fixes the
     stages).  :meth:`take` hands out the set for a key once two calls in
-    a row have asked for it; :meth:`clear` (a net's ``_apply``) drops
-    it."""
+    a row have asked for it: a shape seen once runs eagerly and costs no
+    capture, and one that repeats replaces the set held, so the graphs'
+    memory does not grow with the shapes seen."""
 
     def __init__(self):
         super().__init__()
@@ -171,3 +190,31 @@ class StageSets(dict):
     def clear(self) -> None:
         super().clear()
         self._last = None
+
+
+class GraphedNet(nn.Module):
+    """An eval net whose stages run as CUDA graphs on a card: it holds
+    their set, hands it out (:meth:`stages_for`) and drops it when its
+    tensors move or change type."""
+
+    #: the sets' class, which says what it graphs (tests emulate it)
+    stage_class = Stages
+
+    def __init__(self):
+        super().__init__()
+        self._stages = StageSets()
+
+    def stages_for(self, xyz: torch.Tensor, *key: Hashable) -> Stages:
+        """The stages of a call on ``xyz``: :data:`EAGER` off a CUDA
+        tensor, else the set handed out for ``xyz``'s shape and device and
+        ``key``, whatever else fixes the stages."""
+        if not self.stage_class.graphed(xyz):
+            return EAGER
+        return self._stages.take((tuple(xyz.shape), xyz.device, *key),
+                                 partial(self.stage_class, xyz.device))
+
+    def _apply(self, fn, *args, **kwargs):
+        # moved or cast parameters leave the captured graphs' pointers
+        # behind: capture anew
+        self._stages.clear()
+        return super()._apply(fn, *args, **kwargs)

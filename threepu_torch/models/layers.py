@@ -10,14 +10,14 @@ products ``x @ W^T + b``, not through cuDNN.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from threepu_torch.ops.edgeconv import edge_conv_chain
+from threepu_torch.ops.edgeconv import edge_conv_chain, edge_conv_chain_plain
 from threepu_torch.ops.fps import fps_indices
-from threepu_torch.ops.gather import batched_gather, gather_nd
+from threepu_torch.ops.gather import gather_nd
 from threepu_torch.ops.knn import knn_group
 
 
@@ -80,8 +80,8 @@ class DenseEdgeConv(nn.Module):
 
         ``chain_kernel`` sends everything per neighbour to the fused,
         forward-only :func:`~threepu_torch.ops.edgeconv.edge_conv_chain`
-        (the JAX package's ``pallas=True``); only the per-point products
-        stay here.  Eval paths set it, under ``torch.no_grad()``."""
+        (the JAX package's ``pallas=True``), else to its plain chain; only
+        the per-point products stay here.  Eval paths set it."""
         g, c = self.growth_rate, x.shape[-1]
         idx = knn_group(x, x, self.k + 1, unique=True, dup_mask=dup_mask,
                         with_neighbors=False).idx[..., 1:]
@@ -93,25 +93,12 @@ class DenseEdgeConv(nn.Module):
         # the per-point part of stages 1 .. n-1 (kernel rows [g_{i-1}, ...,
         # g_0, x])
         acc = [x @ w[i][g * i:] + b[i] for i in range(1, self.n)]
-        if chain_kernel:
-            # the same products as below, so both paths see the same
-            # per-point terms; the chain blocks are views of the weights
-            chain_w = [w[i][g * j:g * (j + 1)] for i in range(1, self.n)
-                       for j in range(i)]
-            pooled = edge_conv_chain(z, idx, [point_term, *acc], chain_w,
-                                     self.n, g)
-            return torch.cat([pooled, x], dim=-1), idx
-        zn = batched_gather(z, idx)                          # (B, N, k, G)
-        gs: List[torch.Tensor] = [torch.relu(zn + point_term[..., None, :])]
-        for i in range(1, self.n):
-            per_k = None
-            for j in range(i):
-                term = gs[i - 1 - j] @ w[i][g * j:g * (j + 1)]
-                per_k = term if per_k is None else per_k + term
-            y = per_k + acc[i - 1][..., None, :]
-            gs.append(y if i == self.n - 1 else torch.relu(y))
-        pooled = [torch.amax(gi, dim=-2) for gi in reversed(gs)]
-        return torch.cat(pooled + [x], dim=-1), idx
+        # the chain blocks are views of the weights
+        chain_w = [w[i][g * j:g * (j + 1)] for i in range(1, self.n)
+                   for j in range(i)]
+        chain = edge_conv_chain if chain_kernel else edge_conv_chain_plain
+        pooled = chain(z, idx, [point_term, *acc], chain_w, self.n, g)
+        return torch.cat([pooled, x], dim=-1), idx
 
 
 class SampledDenseEdgeConv(nn.Module):

@@ -28,7 +28,7 @@ and ``bias``.  On a card the 14 stages of a chunk (each SA level's FPS,
 ball query and group MLP, the FP layers, the expansion) run as CUDA
 graphs (:class:`~threepu_torch.models.graphs.Stages`), each under its
 ``punet.*`` span, once two calls in a row have asked for an input shape
-(the net holds one set, :class:`~threepu_torch.models.graphs.StageSets`).
+(:meth:`~threepu_torch.models.graphs.GraphedNet.stages_for`).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from threepu_torch.models.graphs import EAGER, Stages, StageSets
+from threepu_torch.models.graphs import GraphedNet
 from threepu_torch.models.layers import Conv1x1
 from threepu_torch.ops.ball_query import ball_query
 from threepu_torch.ops.fps import fps
@@ -69,7 +69,7 @@ def _mlp(convs: Sequence[Conv1x1], x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-class PUNet(nn.Module):
+class PUNet(GraphedNet):
     """PU-Net's generator at its published widths for patches of
     ``num_point`` points, 4x.  :meth:`upsample` is the chunk interface of
     :func:`threepu_torch.inference.upsample_point_cloud`."""
@@ -83,7 +83,6 @@ class PUNet(nn.Module):
             raise ValueError(f"PUNet: {num_point} points do not halve "
                              f"{len(RADII) - 1} times")
         self.num_point, self.up_ratio = num_point, up_ratio
-        self._stages = StageSets()
 
         def convs(widths, c_in, fmt):
             out = {}
@@ -109,12 +108,6 @@ class PUNet(nn.Module):
         self.up_layer = nn.ModuleDict(up)
         self.fc_layer1 = Conv1x1(b, COORD_MLP[0])
         self.fc_layer2 = Conv1x1(*COORD_MLP)
-
-    def _apply(self, fn, *args, **kwargs):
-        # moved or cast parameters leave the captured graphs' pointers
-        # behind: capture anew
-        self._stages.clear()
-        return super()._apply(fn, *args, **kwargs)
 
     def _sample(self, l: int, xyz: torch.Tensor):
         picks = fps(xyz, self.num_point // 2 ** (l - 1))
@@ -169,11 +162,7 @@ class PUNet(nn.Module):
             raise ValueError(f"PUNet takes patches of {self.num_point} "
                              f"points; got {n}")
         xyz = xyz.to(torch.float32)
-        run = EAGER
-        if Stages.graphed(xyz):
-            run = self._stages.take((tuple(xyz.shape), xyz.device),
-                                    partial(Stages, xyz.device))
-        xyz = run.input("xyz", xyz)
+        run = self.stages_for(xyz)
         kept = {}
         sa = []
         l_xyz, l_feat = xyz, None

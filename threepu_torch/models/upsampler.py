@@ -32,7 +32,7 @@ from torch import nn
 
 from threepu_torch.device import resolve_device
 from threepu_torch.io.weights import load_jax_checkpoint
-from threepu_torch.models.graphs import EAGER, Stages, StageSets
+from threepu_torch.models.graphs import EAGER, GraphedNet, Stages
 from threepu_torch.models.layers import (DenseConv, DenseEdgeConv,
                                          SampledDenseEdgeConv)
 from threepu_torch.models.punet import PUNet
@@ -163,17 +163,14 @@ class Level(nn.Module):
         Returns ``(upsampled xyz (B, N*r, 3) in the normalized frame,
         point features (B, N, C))``.
         """
-        name = self.span_name
-        args = [stages.input(f"{name}.xyz", xyz),
-                stages.input(f"{name}.xyz_normalized", xyz_normalized)]
+        args = (xyz, xyz_normalized)
         if previous_level4 is not None:
-            args += [stages.input(f"{name}.prev_xyz", previous_level4[0]),
-                     stages.input(f"{name}.prev_feat", previous_level4[1])]
+            args += tuple(previous_level4)
             if prev_dup is not None:
-                args.append(stages.input(f"{name}.prev_dup", prev_dup))
+                args += (prev_dup,)
         out, point_features = stages(
-            name, partial(self._body, prev_group, chain_kernel, capture),
-            *args)
+            self.span_name,
+            partial(self._body, prev_group, chain_kernel, capture), *args)
         return stages.own(out), stages.own(point_features)
 
     def _body(self, prev_group: int, chain_kernel: bool,
@@ -237,7 +234,7 @@ class Level(nn.Module):
         return x
 
 
-class Net(nn.Module):
+class Net(GraphedNet):
     """Progressive cascade of ``log_step(max_up_ratio)`` Levels, named
     ``levels.level_1 ...`` as in the reference.  :meth:`forward` runs the
     train cascade (or, with ``train=False``, :meth:`upsample`, the eval
@@ -256,7 +253,6 @@ class Net(nn.Module):
             (f"level_{l}", Level(dense_n, growth_rate, knn, fm_knn,
                                  step_ratio, span_name=f"level{l}"))
             for l in range(1, num_levels + 1))
-        self._stages = StageSets()
 
     def forward(self, xyz: torch.Tensor, ratio: Optional[int] = None,
                 gt: Optional[torch.Tensor] = None, train: bool = True,
@@ -319,50 +315,34 @@ class Net(nn.Module):
         gt_patch = knn_group(seeds, gt, gt_k).neighbors[:, 0]
         return patch, gt_patch
 
-    def _apply(self, fn, *args, **kwargs):
-        # moved or cast parameters leave the captured graphs' pointers
-        # behind: capture anew
-        self._stages.clear()
-        return super()._apply(fn, *args, **kwargs)
-
     @torch.no_grad()
     def upsample(self, xyz: torch.Tensor, ratio: Optional[int] = None,
                  capture: Optional[Capture] = None) -> torch.Tensor:
         """Eval cascade: normalized patches ``(P, N, 3)`` ->
         ``(P, N*ratio, 3)`` in the same frame.  The edge convs take the
-        fused chain kernel when :func:`edgeconv.enabled_for` says so and
-        the net's stages and growth rate fit it (``dense_n <=
-        edgeconv.MAX_N``, ``growth_rate <= edgeconv.MAX_G``), else the
-        plain chain; decided once per call.  ``capture``, when given,
-        receives every level's intermediates (:class:`Level`) under
+        fused chain kernel where :func:`edgeconv.takes_kernel` says so for
+        ``xyz`` and the net's stages and growth rate, else the plain
+        chain; decided once per call.  ``capture``, when given, receives
+        every level's intermediates (:class:`Level`) under
         ``"level_<l>."``.
 
         On a CUDA tensor without a ``capture``, every stage of the
-        cascade is a CUDA graph
-        (:class:`~threepu_torch.models.graphs.Stages`) once two calls in
-        a row have asked for its chunk shape, ratio, device and edge-conv
-        route: captured then and replayed at every later call of that key
-        (the net holds one set,
-        :class:`~threepu_torch.models.graphs.StageSets`; a key asked for
-        once runs as written).  The stages are each level
-        (:class:`Level`) and each re-patching level's ``extract`` and
-        ``merge_fps``.  Every level is still called on
-        every chunk, with arguments and results that are the caller's
-        own, as is the output, so callers may keep a level's inputs and
-        outputs across chunks.
+        cascade is a CUDA graph once two calls in a row have asked for its
+        chunk shape, ratio and device
+        (:meth:`~threepu_torch.models.graphs.GraphedNet.stages_for`).  The
+        stages are each level (:class:`Level`) and each re-patching
+        level's ``extract`` and ``merge_fps``.  Every level is still
+        called on every chunk, with arguments and results that are the
+        caller's own, as is the output, so callers may keep a level's
+        inputs and outputs across chunks.
         """
         ratio = ratio or self.max_up_ratio
         num_levels = int(math.log(ratio, self.step_ratio))
         p, num_point, _ = xyz.shape
         max_np = min(num_point, self.max_num_point)
-        chain_kernel = (edgeconv.enabled_for(xyz)
-                        and self.dense_n <= edgeconv.MAX_N
-                        and self.growth_rate <= edgeconv.MAX_G)
-        stages = EAGER
-        if capture is None and Stages.graphed(xyz):
-            stages = self._stages.take(
-                (tuple(xyz.shape), ratio, xyz.device, chain_kernel),
-                partial(Stages, xyz.device))
+        chain_kernel = edgeconv.takes_kernel(xyz, self.dense_n,
+                                             self.growth_rate)
+        stages = EAGER if capture is not None else self.stages_for(xyz, ratio)
 
         def level(l, *args, **kw):
             level_capture = None if capture is None else {}
@@ -374,37 +354,33 @@ class Net(nn.Module):
                                for name, t in level_capture.items())
             return out
 
-        # old_xyz / old_feats go to the next level; prev, the stages' own
-        # copy of old_xyz, and valid, which of the previous level's
+        # old_xyz / old_feats go to the next level; prev_xyz, the stages'
+        # own old_xyz, and valid, which of the previous level's
         # sub-patches are real, go to the next extract
-        old_xyz = xyz
+        old_xyz = prev_xyz = xyz
         with span("level1", on=xyz):
             xyz, old_feats = level(1, xyz, xyz)
-        prev, valid = None, None
+        valid = None
         for l in range(2, num_levels + 1):
             n_cur = xyz.shape[1]
             n_sub = int(n_cur / max_np * 5)
             n_lvl = max_np * self.levels[f"level_{l}"].code.shape[0]
             with span(f"level{l}", on=xyz):
-                if prev is None:
-                    xyz = stages.input(f"level{l}.extract.xyz", xyz)
-                    prev = stages.input(f"level{l}.extract.prev_xyz", old_xyz)
                 with span(f"level{l}.extract"):
                     flat, norm, centroid, radius, prev_dup, valid, \
                         merge_valid = stages(
                             f"level{l}.extract",
                             partial(self._extract, max_np, n_sub, n_lvl),
-                            xyz, prev, *(() if valid is None else (valid,)))
-                prev = flat.reshape(p, n_sub * max_np, 3)
+                            xyz, prev_xyz,
+                            *(() if valid is None else (valid,)))
+                prev_xyz = flat.reshape(p, n_sub * max_np, 3)
                 flat, norm = stages.own(flat), stages.own(norm)
                 new_xyz, feats = level(l, flat, norm, (old_xyz, old_feats),
                                        prev_group=n_sub,
                                        prev_dup=stages.own(prev_dup))
                 # the sub-patches' outputs in their patch's frame, merged
                 # a patch
-                merged = stages.input(
-                    f"level{l}.merge_fps.merged",
-                    (new_xyz * radius + centroid).reshape(p, -1, 3))
+                merged = (new_xyz * radius + centroid).reshape(p, -1, 3)
                 with span(f"level{l}.merge_fps"):
                     xyz = stages(f"level{l}.merge_fps",
                                  partial(self._merge,

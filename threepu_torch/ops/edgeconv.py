@@ -9,18 +9,16 @@ stage when ``n > 1``; with ``n = 1`` the only stage keeps its relu) and
 max-pools every stage over the ``k`` neighbours.
 
 - :func:`edge_conv_chain_plain`: the plain PyTorch version, on
-  ``(B, N, k, G)`` tensors.
+  ``(B, N, k, G)`` tensors, with a gradient.
 - :func:`edge_conv_chain`: the CUDA kernel ``csrc/edgeconv.cu`` on CUDA
   tensors, :func:`edge_conv_chain_plain` on CPU tensors.  Forward only,
-  as in the JAX package: it raises when a gradient is asked of it.
+  as in the JAX package: it raises when a gradient is asked of it, and
+  it takes ``n <= MAX_N`` stages of growth rate ``g <= MAX_G``.
 
-:data:`ENABLED` routes the eval cascade, read once per ``Net.upsample``
-call through :func:`enabled_for`.  It is on by default: ``Net.upsample``
-takes the kernel on a CUDA tensor wherever the net's stages and growth
-rate fit it (:data:`MAX_N`, :data:`MAX_G`), and the plain chain
-elsewhere.  ``ENABLED = False`` sends the cascade back to the plain chain,
-which comparisons of the two routes use.  Whether the kernel ran shows
-in ``KERNEL.launches``, not in the output.
+:func:`takes_kernel` is the eval cascade's route, asked once per
+``Net.upsample`` call: the kernel on a CUDA tensor wherever the net's
+stages and growth rate fit it, the plain chain elsewhere.  Whether the
+kernel ran shows in ``KERNEL.launches``, not in the output.
 """
 
 from __future__ import annotations
@@ -37,9 +35,6 @@ from threepu_torch.ops.gather import batched_gather
 KERNEL = Kernel("threepu_edge_conv_chain", [ctypes.c_char_p],
                 source="threepu_torch/csrc/edgeconv.cu",
                 replaces="threepu/ops/edgeconv_pallas.py:103")
-
-#: route the eval cascade's edge convs through :func:`edge_conv_chain`
-ENABLED = True
 
 #: what the kernel is instantiated for: stages ``n`` and growth rate ``g``
 MAX_N = 4
@@ -58,10 +53,12 @@ _ARGS = struct.Struct(f"=Qqq Qqq {MAX_N}Q{MAX_N}q{MAX_N}q "
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 
-def enabled_for(tensor: torch.Tensor) -> bool:
-    """Whether the eval cascade on ``tensor``'s device takes the kernel:
-    :data:`ENABLED` and a CUDA tensor."""
-    return ENABLED and tensor.is_cuda
+def takes_kernel(x: torch.Tensor, n: int, g: int) -> bool:
+    """Whether the eval cascade's edge convs of ``n`` stages of growth
+    rate ``g`` on ``x``'s device take the kernel.  A net's graphs keep
+    the route they were captured on: a caller that patches this clears
+    them (``net._stages.clear()``)."""
+    return x.is_cuda and n <= MAX_N and g <= MAX_G
 
 
 def _checked(z: torch.Tensor, idx: torch.Tensor, pts: Tensors,
@@ -69,13 +66,7 @@ def _checked(z: torch.Tensor, idx: torch.Tensor, pts: Tensors,
              ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """The ``n`` stages' ``pts (B, N, G)`` and the ``n(n-1)/2`` chain
     blocks ``(G, G)`` as lists (views of what was passed, no copy); raises
-    on what the kernel does not take."""
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"edge_conv_chain: n={n} stages; the kernel takes "
-                         f"1 <= n <= {MAX_N}")
-    if not 1 <= g <= MAX_G:
-        raise ValueError(f"edge_conv_chain: growth rate g={g}; the kernel "
-                         f"takes 1 <= g <= {MAX_G}")
+    on shapes that do not fit together."""
     if z.dim() != 3 or idx.dim() != 3:
         raise ValueError("edge_conv_chain: need z (B, N, G) and idx (B, N, K),"
                          f" got {tuple(z.shape)} and {tuple(idx.shape)}")
@@ -101,11 +92,6 @@ def _checked(z: torch.Tensor, idx: torch.Tensor, pts: Tensors,
     if idx.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"edge_conv_chain: idx must be int32 or int64, got "
                          f"{idx.dtype}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (z, *stages, *blocks)):
-        raise RuntimeError("edge_conv_chain is forward-only: call it under "
-                           "torch.no_grad(), or take the decomposed "
-                           "DenseEdgeConv path for a gradient")
     return stages, blocks
 
 
@@ -140,7 +126,7 @@ def edge_conv_chain_plain(z: torch.Tensor, idx: torch.Tensor, pts: Tensors,
 def edge_conv_chain(z: torch.Tensor, idx: torch.Tensor, pts: Tensors,
                     chain_w: Tensors, n: int, g: int) -> torch.Tensor:
     """:func:`edge_conv_chain_plain`'s result, by the CUDA kernel on CUDA
-    tensors (float32; ``1 <= n <= 4``, ``1 <= g <= 32``).
+    tensors (float32; ``1 <= n <= 4``, ``1 <= g <= 32``), forward only.
 
     The kernel reads every array through its strides and ``idx`` as
     int32 or int64, so the edge conv's ``[..., 1:]`` slice of its
@@ -148,7 +134,18 @@ def edge_conv_chain(z: torch.Tensor, idx: torch.Tensor, pts: Tensors,
     and the chain blocks as views of the layer weights go in without a
     copy.  An index outside ``[0, N)`` faults the launch.
     """
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"edge_conv_chain: n={n} stages; the kernel takes "
+                         f"1 <= n <= {MAX_N}")
+    if not 1 <= g <= MAX_G:
+        raise ValueError(f"edge_conv_chain: growth rate g={g}; the kernel "
+                         f"takes 1 <= g <= {MAX_G}")
     stages, blocks = _checked(z, idx, pts, chain_w, n, g)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (z, *stages, *blocks)):
+        raise RuntimeError("edge_conv_chain is forward-only: call it under "
+                           "torch.no_grad(), or take edge_conv_chain_plain "
+                           "for a gradient")
     if not z.is_cuda:
         return _plain(z, idx, stages, blocks, n)
     return _launch(z, idx, stages, blocks, n, g)
