@@ -66,7 +66,11 @@ no result line:
       the JAX output no larger than the JAX package's distance to itself
       when its input is perturbed by 1e-6 (relative): float rounding
       flips near-ties of the re-stitch FPS, so this band holds the port
-      to the surface, and (a) to the numbers.
+      to the surface, and (a) to the numbers.  The run's six chunks must
+      have taken the two stream slots in turn
+      (``inference.SLOT_CHUNKS`` 3 and 3), and its output must equal bit
+      for bit the same shape's with the chunks one after another on the
+      caller's stream, as the pipeline ran them before the slots.
    c. File to file, with the edge-conv kernel on: the same shape written
       to an ``.xyz`` file, ``threepu_torch.cli.main(["--phase", "test",
       ...])`` at the same configuration, the two ``.ply`` files read
@@ -316,6 +320,8 @@ EDGECONV_CASES = ((3, 40, 5, 4, 1), (3, 40, 5, 4, 2), (8, 312, 32, 12, 3),
 EDGECONV_BAND = 1e-5
 #: edge-conv launches of one 16x shape: 4 levels x 4 convs x 6 chunks
 EDGECONV_LAUNCHES = 96
+#: phase 4b's chunks of one 16x shape by stream slot: 6 chunks in turn
+EVAL_SLOT_CHUNKS = {0: 3, 1: 3}
 #: phase 4b's launches of one 16x shape (edge convs decomposed): select 4
 #: convs x 4 levels x 6 chunks; FPS the patch seeds, then per chunk 3
 #: sub-patch seedings and 3 merges, then the final re-stitch; interlevel 3
@@ -1025,20 +1031,35 @@ def end_to_end(net, fx, card: str, kernels: dict) -> tuple:
     """Phase 4b: the 16x pipeline on held-out shape 0, edge convs on the
     plain chain; returns the launch count of each kernel in the checked
     run, the warm seconds per shape and the checked run's output."""
+    import threepu_torch.inference as inf
     with plain_chain(net):
         t0 = time.perf_counter()
         run_shape(net, fx)                           # first run: warm-up
         first_s = time.perf_counter() - t0
         for k in kernels.values():
             k.launches = 0
+        inf.SLOT_CHUNKS.clear()
         out = run_shape(net, fx)
         launches = checked_launches(kernels, ("select", "fps", "interlevel"),
                                     "main-path")
+        slots = dict(inf.SLOT_CHUNKS)
+        # the chunks one after another on the caller's stream
+        with mock.patch.object(inf.SlotStreams, "streamed",
+                               staticmethod(lambda t: False)):
+            one_stream = run_shape(net, fx)
         best, times = warm_shape_s(net, fx)
     for name, want in EVAL_LAUNCHES.items():
         if launches[name] != want:
             raise AssertionError(f"the 16x shape launched {name} "
                                  f"{launches[name]} times, not {want}")
+    print(f"16x chunks by stream slot: {slots}; one-stream output equal: "
+          f"{np.array_equal(out, one_stream)}", flush=True)
+    if slots != EVAL_SLOT_CHUNKS:
+        raise AssertionError(f"the 16x shape's chunks took the slots "
+                             f"{slots}, not {EVAL_SLOT_CHUNKS}")
+    if not np.array_equal(out, one_stream):
+        raise AssertionError("the 16x shape on two stream slots is not the "
+                             "one-stream shape bit for bit")
     check_output(out, fx, next(net.parameters()).device, "16x pipeline")
     n_out = out.shape[0]
     print(f"16x {fx['input'].shape[0]} -> {n_out}: first run {first_s:.3f} s, "

@@ -8,9 +8,12 @@ tensors the capture returned, as a graph's replay overwrites its outputs.
 A copy that is missing, or a graph tensor handed to a caller, then shows
 as it would on a card.  A net captures a key when two calls in a row ask
 for it (:class:`threepu_torch.models.graphs.StageSets`), so the first
-chunk of a shape runs as written and the second captures.  The ``cuda`` cases run the real graphs and skip
-without a card (``python -m pytest tests/test_torch_cascade_graphs.py -q
---noconftest`` on a GPU machine).
+chunk of a shape runs as written and the second captures.  The pipeline
+runs a shape's chunks in turn on two stream slots, each with its set of
+graphs; on the CPU :class:`FakeSlotStreams` emulates the slots' streams
+(the slot changes, the stream does not).  The ``cuda`` cases run the real
+graphs and streams and skip without a card (``python -m pytest
+tests/test_torch_cascade_graphs.py -q --noconftest`` on a GPU machine).
 """
 
 import torch_threads  # noqa: F401  (first: sets torch's threads)
@@ -21,16 +24,22 @@ import numpy as np
 import pytest
 import torch
 
+import threepu_torch.inference as inference
 import threepu_torch.ops.edgeconv as tec
 import threepu_torch.ops.fps as tfps
 import threepu_torch.ops.interlevel as til
 import threepu_torch.ops.select as tsel
 from threepu_torch._build import Kernel
 from threepu_torch.inference import (cut_patches, plan_patches,
-                                     upsample_shape)
+                                     upsample_point_cloud, upsample_shape)
 from threepu_torch.models import Net, PUNet, load_net
-from threepu_torch.models.graphs import EAGER, GraphedNet, Stages, StageSets
+from threepu_torch.models.graphs import (EAGER, GraphedNet, SlotSets,
+                                         SlotStreams, Stages, StageSets,
+                                         slot)
+from threepu_torch.ops.fps import fps_hierarchical
+from threepu_torch.ops.gather import gather_nd
 from threepu_torch.ops.normalize import normalize_point_batch_cl
+from threepu_torch.utils import pc_utils
 
 ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
 WEIGHTS = ROOT / "artifacts" / "prod_clean_final.npz"
@@ -104,8 +113,8 @@ class FakeStages(Stages):
     def graphed(t):
         return True
 
-    def __init__(self, device):
-        super().__init__(device)
+    def __init__(self, device, slot=0):
+        super().__init__(device, slot)
         self.cuda = True
 
     def _warm(self, fn, args):
@@ -114,6 +123,44 @@ class FakeStages(Stages):
     def _record(self, fn, args):
         out = fn(*args)
         return _Replay(fn, args, out), out
+
+
+class FakeSlotStreams(SlotStreams):
+    """:class:`SlotStreams` on the CPU: a chunk runs in its slot, on the
+    one stream there is; :attr:`calls` records the pipeline's calls."""
+
+    @staticmethod
+    def streamed(t):
+        return True
+
+    @classmethod
+    def of(cls, device):
+        cls.made.append(cls(device))
+        return cls.made[-1]
+
+    def __init__(self, device):
+        self.device, self.calls = device, []
+
+    def fork(self):
+        self.calls.append("fork")
+
+    def run(self, i):
+        self.calls.append(i)
+        return slot(i)
+
+    def join(self, outs):
+        self.calls.append(("join", len(outs)))
+
+
+def emulate(monkeypatch):
+    """Graphs and slot streams emulated on the CPU from here on, and the
+    pipeline's slot counter reset; returns the list of the slot streams
+    the pipeline makes."""
+    monkeypatch.setattr(GraphedNet, "stage_class", FakeStages)
+    monkeypatch.setattr(inference, "SlotStreams", FakeSlotStreams)
+    monkeypatch.setattr(FakeSlotStreams, "made", [], raising=False)
+    inference.SLOT_CHUNKS.clear()
+    return FakeSlotStreams.made
 
 
 def small_net(step, seed=0):
@@ -379,7 +426,7 @@ def test_chunk_shapes_keep_one_set_and_a_shape_seen_once_runs_as_written(
     held = []
     for x, w in zip(xs, want):
         assert torch.equal(net.upsample(x), w)
-        held.append([k[0][0] for k in net._stages])
+        held.append([key[0][0] for _, key in net._stages])
     # chunks of 4 patches are captured at the second chunk and replayed
     # at the fourth; chunks of 2 take their place at the sixth and replay
     # at the eighth; the chunks of 3 and 1 come once and run as written
@@ -419,6 +466,201 @@ def test_the_train_cascade_takes_no_graphs(monkeypatch):
         for _ in range(2):
             net(x, 8, gt, seed_idx=[torch.zeros(4, 1, dtype=torch.long)] * 2)
     assert net._stages == {}
+
+
+#: (ratio, points a patch, chunk) of the pipeline's CPU cases: 256 points
+#: make 24 patches, six chunks
+PIPELINE = {"step2": (8, 32, 4), "step4": (16, 32, 4), "punet": (4, 64, 2)}
+
+
+def pipeline_net(arch):
+    if arch == "punet":
+        torch.manual_seed(0)
+        return PUNet(num_point=64).eval()
+    return small_net(arch)
+
+
+def unit_shape(n, seed, device="cpu"):
+    """``n`` points of :func:`surface` in the unit sphere."""
+    p = surface(n, seed)
+    return torch.from_numpy(p / np.linalg.norm(p, axis=1).max()).to(device)
+
+
+def one_stream(net, xyz, ratio, num_point, num_out, chunk):
+    """The pipeline as it ran before its chunks took two stream slots,
+    written out: the seed, every chunk in turn on the caller's stream, and
+    the re-stitch (masked where the patches were padded)."""
+    n, padded, chunk = plan_patches(xyz.shape[0], num_point, chunk=chunk)
+    patches = cut_patches(xyz[None], n, num_point)
+    patches = torch.cat([patches, patches[:1].expand(padded - n, -1, -1)])
+    norm, centroid, radius = normalize_point_batch_cl(patches)
+    up = torch.cat([net.upsample(norm[i:i + chunk], ratio)
+                    for i in range(0, padded, chunk)])
+    merged = (up * radius + centroid).reshape(1, -1, 3)
+    valid = (torch.arange(padded, device=xyz.device)[:, None] < n).expand(
+        padded, num_point * ratio).reshape(1, -1)
+    groups = inference.resolve_restitch_groups(None, num_out)
+    if groups > 1:
+        idx = fps_hierarchical(merged, num_out, valid_mask=valid,
+                               group_max=-(-merged.shape[1] // groups))
+    else:
+        idx = tfps._dispatch_fps(merged, num_out, valid)
+    return gather_nd(merged, idx)[0]
+
+
+def sets_by_slot(net):
+    """The net's sets of graphs, ``{slot: Stages}``."""
+    return {i: net._stages[i, key] for i, key in net._stages}
+
+
+def test_two_slots_each_capture_once_at_their_own_second_call(monkeypatch):
+    """Four chunks of one shape in turn in slots 0 and 1, graphs
+    emulated: each slot runs its first chunk as written and captures at
+    its own second, into a set of its own; the outputs equal the eager
+    ones bit for bit, and a call outside any slot takes slot 0's set."""
+    net = small_net("step2")
+    a, b, c = small_chunks("step2")
+    xs = [a, b, c, a]
+    want = [net.upsample(x) for x in xs]
+    monkeypatch.setattr(GraphedNet, "stage_class", FakeStages)
+    held = []
+    for j, x in enumerate(xs):
+        with slot(j % 2):
+            assert torch.equal(net.upsample(x), want[j])
+        held.append(sorted(sets_by_slot(net)))
+    assert held == [[], [], [0], [0, 1]]
+    sets = sets_by_slot(net)
+    assert sets[0] is not sets[1]
+    assert [sets[i].slot for i in (0, 1)] == [0, 1]
+    for run in sets.values():
+        assert len(run.graphs) == n_stages(net)
+        assert set(run.captures.values()) == {1}
+        assert set(run.replays.values()) == {1}
+    assert torch.equal(net.upsample(b), want[1])
+    assert set(sets[0].replays.values()) == {2}
+    assert set(sets[1].replays.values()) == {1}
+
+
+def test_slot_sets_map_each_slot_and_key_to_its_set():
+    """:class:`SlotSets` keeps each slot's rule apart and reads as the
+    mapping ``(slot, key) -> set``; ``clear`` forgets every slot's set
+    and last key."""
+    sets = SlotSets()
+    made = []
+
+    def make():
+        made.append(FakeStages("cpu"))
+        return made[-1]
+
+    assert sets.take(0, "a", make) is EAGER
+    assert sets.take(1, "a", make) is EAGER
+    a0 = sets.take(0, "a", make)
+    assert dict(sets) == {(0, "a"): a0} and len(sets) == 1
+    a1 = sets.take(1, "a", make)
+    assert made == [a0, a1] and dict(sets) == {(0, "a"): a0, (1, "a"): a1}
+    assert sets[1, "a"] is a1 and sets.take(0, "a", make) is a0
+    sets.clear()
+    assert sets == {} and not sets
+    assert sets.take(0, "a", make) is EAGER and len(made) == 2
+
+
+@pytest.mark.parametrize("arch", ["step2", "step4", "punet"])
+def test_an_overlapped_shape_equals_the_one_stream_loop(monkeypatch, arch):
+    """Two shapes of six chunks through ``upsample_point_cloud``, the
+    chunks in turn in slots 0 and 1 (graphs and streams emulated: each
+    slot runs its first chunk as written, captures at its second and
+    replays after), equal the one-stream loop bit for bit.  The slots
+    fork once a shape and join once, on all six chunks' outputs."""
+    net = pipeline_net(arch)
+    ratio, num_point, chunk = PIPELINE[arch]
+    shapes = [unit_shape(256, 3), unit_shape(256, 4)]
+    want = [one_stream(net, x, ratio, num_point, 256 * ratio, chunk)
+            for x in shapes]
+    made = emulate(monkeypatch)
+    for x, w in zip(shapes, want):
+        got = upsample_point_cloud(net, x, ratio, num_point, 256 * ratio,
+                                   chunk=chunk)
+        assert torch.equal(got, w)
+    assert [s.calls for s in made] == [
+        ["fork", 0, 1, 0, 1, 0, 1, ("join", 6)]] * 2
+    sets = sets_by_slot(net)
+    assert sorted(sets) == [0, 1]
+    for run in sets.values():
+        assert set(run.captures.values()) == {1}
+        # a capture, then one replay at it and one more on the first
+        # shape, three on the second
+        assert set(run.replays.values()) == {5}
+
+
+@pytest.mark.parametrize("chunk,slots", [(24, {}), (8, {0: 2, 1: 1}),
+                                         (6, {0: 2, 1: 2}),
+                                         (5, {0: 3, 1: 2}),
+                                         (4, {0: 3, 1: 3})],
+                         ids=["1", "3", "4", "5-padded", "6"])
+def test_the_slot_counter_counts_each_chunk_by_its_slot(monkeypatch, chunk,
+                                                        slots):
+    """24 patches in chunks of ``chunk`` (5 pads them to 25): the slot
+    counter counts each chunk in its slot, and a shape of one chunk
+    counts nothing; the output is the one-stream loop's."""
+    net = small_net("step2")
+    x = unit_shape(256, 3)
+    want = one_stream(net, x, 8, 32, 2048, chunk)
+    emulate(monkeypatch)
+    got = upsample_point_cloud(net, x, 8, 32, 2048, chunk=chunk)
+    assert torch.equal(got, want)
+    assert inference.SLOT_CHUNKS == collections.Counter(slots)
+
+
+def test_a_single_chunk_rank_uses_one_slot_and_no_second_set(monkeypatch):
+    """A rank of one chunk runs it on the caller's stream, in slot 0: no
+    slot streams, nothing counted, and after three shapes one set."""
+    net = small_net("step2")
+    x = unit_shape(256, 3)
+    want = one_stream(net, x, 8, 32, 2048, None)
+    made = emulate(monkeypatch)
+    for _ in range(3):
+        assert torch.equal(upsample_point_cloud(net, x, 8, 32, 2048), want)
+    assert not made and not inference.SLOT_CHUNKS
+    (run,) = sets_by_slot(net).values()
+    assert run.slot == 0 and set(run.replays.values()) == {2}
+
+
+def test_a_cpu_shape_runs_its_chunks_as_before():
+    """On CPU tensors the pipeline runs every chunk in turn as written:
+    no slot streams, nothing counted, no graphs."""
+    net = small_net("step2")
+    x = unit_shape(256, 3)
+    made = dict(SlotStreams._made)
+    inference.SLOT_CHUNKS.clear()
+    got = upsample_point_cloud(net, x, 8, 32, 2048, chunk=4)
+    assert torch.equal(got, one_stream(net, x, 8, 32, 2048, 4))
+    assert SlotStreams._made == made and not inference.SLOT_CHUNKS
+    assert net._stages == {}
+
+
+@pytest.mark.parametrize("arch", ["step2", "punet"])
+def test_to_drops_both_slots_sets(monkeypatch, arch):
+    """After an overlapped shape each slot holds a set; ``.to()`` drops
+    both, and the next shape captures anew in each slot, at that slot's
+    second chunk, with the same output."""
+    net = pipeline_net(arch)
+    ratio, num_point, chunk = PIPELINE[arch]
+    x = unit_shape(256, 3)
+    emulate(monkeypatch)
+    first = upsample_point_cloud(net, x, ratio, num_point, 256 * ratio,
+                                 chunk=chunk)
+    old = sets_by_slot(net)
+    assert sorted(old) == [0, 1]
+    net.to("cpu")
+    assert net._stages == {}
+    assert torch.equal(upsample_point_cloud(net, x, ratio, num_point,
+                                            256 * ratio, chunk=chunk), first)
+    new = sets_by_slot(net)
+    assert sorted(new) == [0, 1]
+    for i in (0, 1):
+        assert new[i] is not old[i]
+        assert set(new[i].captures.values()) == {1}
+        assert set(new[i].replays.values()) == {2}
 
 
 # ----------------------------------------------------------------- card
@@ -504,6 +746,109 @@ def test_to_after_a_run_recaptures(card):
     assert set(run.replays.values()) == {1}
 
 
+# The overlap's card cases come before the profiler's: after a profiler
+# session, the reference check of a shape left every later session of the
+# process without device events (the edge-conv cases of
+# test_torch_kernels_cuda.py; H100, torch 2.11), though neither alone did.
+
+
+def card_pipeline_net(arch, dev):
+    """``(net, ratio, points a patch)`` of a card case: the trained step-2
+    net, the seeded step-4 net or PU-Net at its published widths."""
+    if arch == "punet":
+        torch.manual_seed(0)
+        return PUNet().to(dev).eval(), 4, 1024
+    return full_net(2 if arch == "s2-trained" else 4, dev), 16, 312
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["s2-trained", "s4-seeded", "punet"])
+def test_an_overlapped_shape_on_the_card_equals_the_one_stream_loop(card,
+                                                                    arch):
+    """The fixture's 5,000-point shape through ``upsample_shape`` (16x:
+    six chunks; PU-Net: 14 patches padded to two chunks), its chunks on
+    the two slots' streams, against the one-stream loop on the caller's
+    stream: bit for bit, on the first shape (which captures in each slot)
+    and on the second (which replays); each chunk counted in its slot."""
+    net, ratio, num_point = card_pipeline_net(arch, card)
+    pts = fixture_points()
+    data, centroid, furthest = pc_utils.normalize_point_cloud(pts)
+    inference.SLOT_CHUNKS.clear()
+    got = [upsample_shape(net, pts, ratio, num_point=num_point, chunk=8)[1]
+           for _ in range(2)]
+    chunks_a_shape = 6 if ratio == 16 else 2
+    assert inference.SLOT_CHUNKS == {0: chunks_a_shape,
+                                     1: chunks_a_shape}
+    assert sorted(sets_by_slot(net)) == [0, 1]
+    xyz = torch.from_numpy(np.ascontiguousarray(data)).to(card)
+    want = one_stream(net, xyz, ratio, num_point, pts.shape[0] * ratio, 8)
+    want = want.cpu().numpy() * furthest + centroid
+    for g in got:
+        np.testing.assert_array_equal(g, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["3pu-s2-16x", "3pu-s4-16x"])
+def test_a_shape_recorded_under_overlap_checks_to_zero(card, config):
+    """The benchmark's recorder on the benchmark's net, a pool shape run
+    with its chunks on the two slots' streams after two shapes that
+    capture: ``portbench.evalcheck.check_shape`` follows every chunk's
+    level calls and reads 0 everywhere."""
+    import json
+
+    from portbench import evalcheck, reference as R, surface, weights
+    from portbench.drivers.eval import Probe
+
+    bench = ROOT / "portbench"
+    cfg = json.loads((bench / "configs" / f"{config}.json").read_text())
+    traffic = json.loads((bench / "traffic" / "closed-5k.json").read_text())
+    job = dict(config=cfg, seed=(1 << 31) + 20)
+    net, params = weights.eval_net(job, card)
+    probe = Probe(net, None, None)
+    pool = surface.pool(job["seed"], 3, traffic["points"])
+    kwargs = dict(num_point=traffic["num_point"], chunk=traffic["chunk"],
+                  patch_num_ratio=traffic["patch_num_ratio"])
+    for points in pool[:2]:
+        upsample_shape(net, points, traffic["ratio"], **kwargs)
+    inference.SLOT_CHUNKS.clear()
+    probe.rec = rec = dict(chunks=[], levels=[], gathered=None)
+    rec["output"] = upsample_shape(net, pool[2], traffic["ratio"],
+                                   **kwargs)[1]
+    probe.rec = None
+    assert inference.SLOT_CHUNKS == {0: 3, 1: 3} and len(rec["chunks"]) == 6
+    readings = evalcheck.check_shape(R.Arith(), params,
+                                     R.NetSpec(**cfg["net"]), traffic,
+                                     pool[2], rec)
+    assert readings == {"start": 0.0, "glue": 0.0, "level_rows": 0.0,
+                        "restitch": 0.0}
+
+
+@pytest.mark.cuda
+def test_the_overlap_holds_at_most_two_sets_of_memory(card):
+    """The peak of a warm 16x shape with its chunks on two slots (two
+    sets of graphs, two chunks in flight) is at most twice the peak of
+    the one-stream loop's warm shape (one set, one chunk)."""
+    net = full_net(2, card)
+    pts = fixture_points()
+    data = pc_utils.normalize_point_cloud(pts)[0]
+    xyz = torch.from_numpy(np.ascontiguousarray(data)).to(card)
+
+    def peak(fn):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
+        fn()
+        torch.cuda.synchronize(card)
+        return torch.cuda.max_memory_allocated(card)
+
+    one = peak(lambda: one_stream(net, xyz, 16, 312, 80000, 8))
+    two = peak(lambda: upsample_point_cloud(net, xyz, 16, 312, 80000,
+                                            chunk=8))
+    assert sorted(sets_by_slot(net)) == [0, 1]
+    assert one < two <= 2 * one, (one, two)
+
+
 def _profiled_launches(fn):
     """``fn()`` under ``torch.profiler``: how many device operations of
     each of :data:`KERNELS` the profiler saw (by the kernel's name)."""
@@ -544,8 +889,12 @@ def test_launches_per_shape_equal_the_eager_counts(card, step):
         assert counted == SHAPE_LAUNCHES[step]
         if ran is not None:
             assert ran == counted
-    (run,) = net._stages.values()
-    assert set(run.replays.values()) == {11}
+    # six chunks a shape in turn in two slots: each slot's first chunk
+    # runs as written, its second captures and replays, each later
+    # chunk replays
+    sets = sets_by_slot(net)
+    assert sorted(sets) == [0, 1]
+    assert all(set(run.replays.values()) == {5} for run in sets.values())
 
 
 @pytest.mark.cuda
@@ -570,3 +919,4 @@ def test_a_capture_under_the_profiler_records_spans_outside_it(card):
     assert names["level2.merge_fps"] == 3
     assert all(s["device_end_ms"] is not None for s in spans)
     assert torch.equal(outs[1], outs[2]) and torch.equal(outs[0], outs[1])
+

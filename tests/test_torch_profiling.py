@@ -143,9 +143,9 @@ def test_the_pipeline_keeps_its_outside_hooks():
 
 @pytest.mark.parametrize("step", [2, 4])
 def test_span_tree(step):
-    """One shape, one root; a cascade span a chunk, a level span a level
-    of each; merge FPS under the levels that split; every span inside
-    its parent's host time."""
+    """One shape, one root; the chunks' cascades under one span, a
+    cascade span a chunk, a level span a level of each; merge FPS under
+    the levels that split; every span inside its parent's host time."""
     spans, _, _ = profiled_shape(step)
     by_id = {s["id"]: s for s in spans}
     roots = [s for s in spans if s["parent"] is None]
@@ -161,9 +161,10 @@ def test_span_tree(step):
     chunks = padded // c
     n = Counter(s["name"] for s in spans)
     children = [s for s in spans if s["parent"] == roots[0]["id"]]
-    assert [s["name"] for s in children] == (["prepare", "seed"]
-                                             + ["cascade"] * chunks
-                                             + ["restitch", "finish"])
+    assert [s["name"] for s in children] == ["prepare", "seed", "cascades",
+                                             "restitch", "finish"]
+    assert [s["name"] for s in spans
+            if s["parent"] == children[2]["id"]] == ["cascade"] * chunks
     levels = {2: 3, 4: 2}[step]
     for l in range(1, levels + 1):
         assert n[f"level{l}"] == chunks

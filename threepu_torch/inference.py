@@ -5,18 +5,24 @@ patch is normalized, the ``Net`` eval cascade runs over patch chunks,
 the patches are denormalized and merged, and a final FPS re-stitches
 the merge to ``num_out`` points.  Everything runs on the device of the
 input tensor; the host touches the data to upload the shape and to
-download the result.  With a ``mesh``
+download the result.  On a CUDA device a rank's chunks run two at a
+time, in turn on the two stream slots of
+:class:`threepu_torch.models.graphs.SlotStreams`, each with the net's
+graphs of its slot, so that one chunk's work fills the SMs that the
+other's merge FPS leaves idle.  With a ``mesh``
 (:class:`threepu_torch.parallel.Mesh`) the patches split over its ranks
 and one all-gather merges them (:mod:`threepu_torch.parallel`).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Iterator, Optional, Protocol, Tuple, Union
 
 import numpy as np
 import torch
 
+from threepu_torch.models.graphs import SLOTS, SlotStreams
 from threepu_torch.ops.fps import PALLAS_MAX_N, _dispatch_fps, fps_hierarchical
 from threepu_torch.ops.gather import gather_nd
 from threepu_torch.ops.knn import knn_group
@@ -29,6 +35,10 @@ from threepu_torch.utils.profiling import span
 #: package's defaults, chosen there at trained weights)
 DEFAULT_RESTITCH_GROUPS = 8
 RESTITCH_AUTO_MIN_OUT = 16384
+
+#: chunks run by stream slot, where a rank's chunks ran two at a time:
+#: how often the overlap engaged
+SLOT_CHUNKS: collections.Counter = collections.Counter()
 
 
 class Upsampler(Protocol):
@@ -123,10 +133,23 @@ def upsample_point_cloud(net: Upsampler, xyz: torch.Tensor, ratio: int,
     if mesh is not None:
         local = padded // mesh.size
         lo, hi = mesh.rank * local, (mesh.rank + 1) * local
+    starts = range(lo, hi, chunk)
     ups = []
-    for i in range(lo, hi, chunk):
-        with span("cascade", on=xyz):
-            ups.append(net.upsample(norm[i:i + chunk], ratio))
+    with span("cascades", on=xyz):
+        if len(starts) > 1 and SlotStreams.streamed(xyz):
+            # the chunks in turn on the two slots' streams, which wait for
+            # the seed; norm outlives the join, so no slot reads it freed
+            slots = SlotStreams.of(dev)
+            slots.fork()
+            for j, i in enumerate(starts):
+                with slots.run(j % SLOTS), span("cascade", on=xyz):
+                    ups.append(net.upsample(norm[i:i + chunk], ratio))
+                SLOT_CHUNKS[j % SLOTS] += 1
+            slots.join(ups)
+        else:
+            for i in starts:
+                with span("cascade", on=xyz):
+                    ups.append(net.upsample(norm[i:i + chunk], ratio))
     up = torch.cat(ups, dim=0)
     up = up * radius[lo:hi] + centroid[lo:hi]                 # denormalize
     if mesh is not None:

@@ -1,6 +1,6 @@
 """CUDA graphs over a net's eval stages: :class:`Stages`, one set for
 one input shape on one device, and :class:`GraphedNet`, the base of the
-eval nets, which holds one set (:class:`StageSets`).
+eval nets, which holds one set a stream slot (:class:`SlotSets`).
 
 On a CUDA device each stage, a function of tensors, is captured as a
 CUDA graph at its first call and replayed at every later one, so a
@@ -18,14 +18,25 @@ code that may keep it goes through :meth:`Stages.own`, a copy.
 capture records each kernel's launches, and every replay adds them.  The
 run before a capture and the capture itself count nothing, so a chunk
 counts the launches of one eager run whether it captured or replayed.
+
+The inference pipeline runs a shape's chunks two at a time, one on each
+of :data:`SLOTS` stream slots (:class:`SlotStreams`), so that one
+chunk's work fills the SMs that the other's merge FPS leaves idle.  Each
+slot has a set of graphs of its own, captured and replayed on its own
+stream, so the two chunks share no static input, output or workspace.
+Code outside the pipeline runs in slot 0.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 import weakref
+from collections.abc import Mapping
 from functools import partial
-from typing import Callable, Dict, Hashable, NamedTuple, Optional, Set, Tuple
+from typing import (Callable, Dict, Hashable, Iterator, NamedTuple, Optional,
+                    Sequence, Set, Tuple)
 
 import torch
 from torch import nn
@@ -44,6 +55,77 @@ def _launch_counts() -> Dict[Kernel, int]:
     return {k: k.launches for k in Kernel.instances}
 
 
+#: stream slots: a net holds a set of graphs for each, and the pipeline
+#: runs a shape's chunks on them in turn
+SLOTS = 2
+_local = threading.local()
+
+
+def current_slot() -> int:
+    """The stream slot this thread runs in (:func:`slot`); 0 outside."""
+    return getattr(_local, "slot", 0)
+
+
+@contextlib.contextmanager
+def slot(i: int):
+    """Runs the block in stream slot ``i``: :meth:`GraphedNet.stages_for`
+    hands out slot ``i``'s set."""
+    prev, _local.slot = current_slot(), i
+    try:
+        yield
+    finally:
+        _local.slot = prev
+
+
+class SlotStreams:
+    """A CUDA device's stream for each slot, made once a device
+    (:meth:`of`).  A slot's graphs are captured on its stream, and the
+    pipeline runs the slot's chunks there: :meth:`fork` after the work
+    they read, :meth:`run` around each chunk, :meth:`join` before the
+    work that reads their outputs."""
+
+    _made: Dict[torch.device, "SlotStreams"] = {}
+
+    @staticmethod
+    def streamed(t: torch.Tensor) -> bool:
+        """Whether ``t``'s device has slot streams: a CUDA device."""
+        return t.is_cuda
+
+    @classmethod
+    def of(cls, device: torch.device) -> "SlotStreams":
+        got = cls._made.get(device)
+        if got is None:
+            got = cls._made[device] = cls(device)
+        return got
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.streams = tuple(torch.cuda.Stream(device) for _ in range(SLOTS))
+
+    def fork(self) -> None:
+        """Every slot's stream waits for the work enqueued so far on the
+        caller's stream."""
+        ready = torch.cuda.current_stream(self.device).record_event()
+        for s in self.streams:
+            s.wait_event(ready)
+
+    @contextlib.contextmanager
+    def run(self, i: int):
+        """Runs the block in slot ``i``, on its stream."""
+        with torch.cuda.stream(self.streams[i]), slot(i):
+            yield
+
+    def join(self, outs: Sequence[torch.Tensor]) -> None:
+        """The caller's stream waits for every slot's stream, and ``outs``,
+        made there, go back to the allocator only once the caller's
+        stream's work enqueued until they are freed has run."""
+        caller = torch.cuda.current_stream(self.device)
+        for s in self.streams:
+            caller.wait_stream(s)
+        for t in outs:
+            t.record_stream(caller)
+
+
 class Stages:
     """The stages of one input shape on one device.  On a CUDA device
     each stage is captured into one pool: first one run outside the
@@ -51,12 +133,17 @@ class Stages:
     capture, then a replay.  The stages must replay in the order they
     were captured, as one pool's graphs share its memory.
 
+    The run before a capture and the capture go on the stream of the
+    set's slot (:class:`SlotStreams`), so that the graphs of two slots
+    own distinct cuBLAS workspaces (a workspace a stream).
+
     :attr:`graphs` holds each stage's graph, :attr:`captures` and
     :attr:`replays` count, by stage name, how often each was captured
     and replayed."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, slot: int = 0):
         self.device = torch.device(device)
+        self.slot = slot
         self.cuda = self.device.type == "cuda"
         self.graphs: Dict[str, _Graph] = {}
         self.captures: collections.Counter = collections.Counter()
@@ -142,20 +229,24 @@ class Stages:
         self.replays[name] += 1
         return got.out
 
+    def _stream(self) -> "torch.cuda.Stream":
+        return SlotStreams.of(self.device).streams[self.slot]
+
     def _warm(self, fn: Callable, args: tuple) -> None:
-        """The run before a capture, on a side stream."""
+        """The run before a capture, on the slot's stream."""
         with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
+            side = self._stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 fn(*args)
             torch.cuda.current_stream().wait_stream(side)
 
     def _record(self, fn: Callable, args: tuple):
-        """``(graph, outputs)`` of ``fn(*args)`` captured into the pool."""
+        """``(graph, outputs)`` of ``fn(*args)`` captured into the pool on
+        the slot's stream."""
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), torch.cuda.graph(
-                graph, pool=self.pool):
+                graph, pool=self.pool, stream=self._stream()):
             out = fn(*args)
         return graph, out
 
@@ -165,7 +256,7 @@ EAGER = Stages("cpu")
 
 
 class StageSets(dict):
-    """A net's graphs: at most one :class:`Stages`, under the key it was
+    """A slot's graphs: at most one :class:`Stages`, under the key it was
     captured for (input shape, device and whatever else fixes the
     stages).  :meth:`take` hands out the set for a key once two calls in
     a row have asked for it: a shape seen once runs eagerly and costs no
@@ -192,29 +283,62 @@ class StageSets(dict):
         self._last = None
 
 
+class SlotSets(Mapping):
+    """A net's graphs: a :class:`StageSets` for each stream slot, each
+    with its own rule, so a net holds at most :data:`SLOTS` sets.  As a
+    mapping, the sets held by ``(slot, key)``."""
+
+    def __init__(self):
+        self._slots = tuple(StageSets() for _ in range(SLOTS))
+
+    def take(self, i: int, key: Hashable,
+             make: Callable[[], Stages]) -> Stages:
+        """:meth:`StageSets.take` of slot ``i``."""
+        return self._slots[i].take(key, make)
+
+    def __getitem__(self, slot_key: Tuple[int, Hashable]) -> Stages:
+        i, key = slot_key
+        return self._slots[i][key]
+
+    def __iter__(self) -> Iterator[Tuple[int, Hashable]]:
+        return ((i, key) for i, sets in enumerate(self._slots)
+                for key in sets)
+
+    def __len__(self) -> int:
+        return sum(map(len, self._slots))
+
+    def clear(self) -> None:
+        """Forgets every slot's set and last key."""
+        for sets in self._slots:
+            sets.clear()
+
+
 class GraphedNet(nn.Module):
     """An eval net whose stages run as CUDA graphs on a card: it holds
-    their set, hands it out (:meth:`stages_for`) and drops it when its
-    tensors move or change type."""
+    their sets, one a stream slot, hands out the set of the slot a call
+    runs in (:meth:`stages_for`) and drops them when its tensors move or
+    change type."""
 
     #: the sets' class, which says what it graphs (tests emulate it)
     stage_class = Stages
 
     def __init__(self):
         super().__init__()
-        self._stages = StageSets()
+        self._stages = SlotSets()
 
     def stages_for(self, xyz: torch.Tensor, *key: Hashable) -> Stages:
         """The stages of a call on ``xyz``: :data:`EAGER` off a CUDA
-        tensor, else the set handed out for ``xyz``'s shape and device and
-        ``key``, whatever else fixes the stages."""
+        tensor, else the set that the current slot (:func:`slot`) hands
+        out for ``xyz``'s shape and device and ``key``, whatever else
+        fixes the stages."""
         if not self.stage_class.graphed(xyz):
             return EAGER
-        return self._stages.take((tuple(xyz.shape), xyz.device, *key),
-                                 partial(self.stage_class, xyz.device))
+        i = current_slot()
+        return self._stages.take(i, (tuple(xyz.shape), xyz.device, *key),
+                                 partial(self.stage_class, xyz.device, i))
 
     def _apply(self, fn, *args, **kwargs):
         # moved or cast parameters leave the captured graphs' pointers
-        # behind: capture anew
+        # behind: capture anew, in every slot
         self._stages.clear()
         return super()._apply(fn, *args, **kwargs)
