@@ -11,9 +11,11 @@ no result line:
 2. Build: compiles ``threepu_torch/csrc/*.cu`` for sm_90a with nvcc.
 3. Kernels against their plain PyTorch versions, at the shapes of the
    16x pipeline: select (k=33 over (B, 312, 312) for B = 80, 160 and 320,
-   injected ties and 1e30 penalty columns) and FPS (AdaptiveLevel's 48 x
-   312 -> 48 and 48 x 48 -> 16, the level-2, 3 and 4
-   merges, 8 x 6240 / 12480 / 24960 -> 1248 / 2496 / 4992, and the final
+   injected ties and 1e30 penalty columns, and PU-GAN's feature kNN, k=17
+   over (8, 256, 256) with repeated points penalized) and FPS
+   (AdaptiveLevel's 48 x 312 -> 48 and 48 x 48 -> 16, the level-2, 3 and 4
+   merges, 8 x 6240 / 12480 / 24960 -> 1248 / 2496 / 4992, PU-GAN's net
+   FPS, 8 x 1536 -> 1024, and the final
    re-stitch, 8 x 29952 -> 10000, with a mask and non-finite points; the
    cluster plan taken and microseconds per pick printed for each, then
    the pick chain's floor at each cluster size) must match exactly;
@@ -36,7 +38,8 @@ no result line:
    (B = 8, 80, 160 and 320 sub-patches of N = 312, k = 32, G = 12, n = 3,
    the calls of levels 1 to 4, in the main path's layout: the int32
    ``[..., 1:]`` view of a k+1 selection, the chain blocks as views of
-   weights; and two small odd shapes with n = 1 and n = 2)
+   weights; PU-GAN's B = 8, N = 256, k = 16, G = 24; and two small odd
+   shapes with n = 1 and n = 2)
    must agree to 1e-5.  Each kernel's time is printed beside its plain
    version's, the time of one PyTorch call computing the same function
    where there is one (``torch.topk`` for select, ``torch.cdist`` and a
@@ -286,11 +289,14 @@ SEED = 0
 # phase 3 shapes: (B, N) of the conv-site distance matrices (k=33); FPS
 # (clouds, points, picks); interlevel (P, sub-patches per top patch, M)
 SELECT_BATCHES, SELECT_N = (80, 160, 320), 312
+#: a PU-GAN chunk's feature kNN: (B, N, C, k + 1) over the distances of its
+#: dense edge convs' 48-wide inputs
+SELECT_FEATURE_CASE = (8, 256, 48, 17)
 #: AdaptiveLevel's two samplings (48 patches: 312 -> 48, 48 -> 16), the
-#: merge re-stitches of levels 2, 3 and 4, then a group of the final G = 8
-#: re-stitch
+#: merge re-stitches of levels 2, 3 and 4, a PU-GAN chunk's net FPS, then a
+#: group of the final G = 8 re-stitch
 FPS_CASES = ((48, 312, 48), (48, 48, 16), (8, 6240, 1248), (8, 12480, 2496),
-             (8, 24960, 4992), (8, 29952, 10000))
+             (8, 24960, 4992), (8, 1536, 1024), (8, 29952, 10000))
 #: picks of the pick-chain floor (:func:`fps_chain_floor`)
 FPS_FLOOR_PICKS = 4992
 #: level 2 of the step-4 net, then levels 2, 3 and 4 of the step-2 net
@@ -311,12 +317,13 @@ CHAMFER_STEP4_CASE = (16, 1248)
 #: (B, N, M) of odd Chamfer shapes: one query a cloud, one candidate, and
 #: N != M over several tiles
 CHAMFER_ODD_CASES = ((3, 1, 700), (3, 700, 1), (2, 300, 2500))
-#: the edge-conv chain (B, N, k, G, n): two small odd shapes, then the
-#: calls of a chunk's levels 1, 2, 3 and 4; max abs band against the plain
-#: version, whose cuBLAS products sum in another order
-EDGECONV_CASES = ((3, 40, 5, 4, 1), (3, 40, 5, 4, 2), (8, 312, 32, 12, 3),
-                  (80, 312, 32, 12, 3), (160, 312, 32, 12, 3),
-                  (320, 312, 32, 12, 3))
+#: the edge-conv chain (B, N, k, G, n): two small odd shapes, a PU-GAN
+#: chunk's call, then the calls of a 3PU chunk's levels 1, 2, 3 and 4; max
+#: abs band against the plain version, whose cuBLAS products sum in
+#: another order
+EDGECONV_CASES = ((3, 40, 5, 4, 1), (3, 40, 5, 4, 2), (8, 256, 16, 24, 3),
+                  (8, 312, 32, 12, 3), (80, 312, 32, 12, 3),
+                  (160, 312, 32, 12, 3), (320, 312, 32, 12, 3))
 EDGECONV_BAND = 1e-5
 #: edge-conv launches of one 16x shape: 4 levels x 4 convs x 6 chunks
 EDGECONV_LAUNCHES = 96
@@ -415,6 +422,21 @@ def select_inputs(dev, g, b=320, n=312):
     d[..., pen] = 1e30                         # duplicate-penalty columns
     d[0, :, :n - 22] = 1e30                    # rows with < k real columns
     return d
+
+
+def feature_select_inputs(dev, g, b, n, c):
+    """Squared distances between ``(b, n, c)`` ReLU features, every 40th
+    point a repeat of the one before it (same position, same features),
+    its column penalized as the net's feature kNN does."""
+    import torch
+    from threepu_torch.ops.distances import duplicate_mask, pairwise_dist2
+    from threepu_torch.ops.knn import PENALTY
+    xyz = torch.randn((b, n, 3), generator=g, device=dev)
+    feat = torch.relu(torch.randn((b, n, c), generator=g, device=dev))
+    for t in (xyz, feat):
+        t[:, 1::40] = t[:, 0::40][:, :t[:, 1::40].shape[1]]
+    d = pairwise_dist2(feat, feat)
+    return d.masked_fill(duplicate_mask(xyz)[..., None, :], PENALTY)
 
 
 def fps_inputs(dev, g, b, n):
@@ -782,6 +804,19 @@ def check_kernels(dev, card: str, fx) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     report = {}
+
+    b, n, c, k = SELECT_FEATURE_CASE
+    d = feature_select_inputs(dev, g, b, n, c)
+    v, i = sel_mod.select(d, k)
+    pv, pi = sel_mod.select_plain(d, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(v, pv) and torch.equal(i, pi)):
+        raise AssertionError(f"select {tuple(d.shape)} k={k} over features: "
+                             "kernel and plain version differ")
+    ms = cuda_ms(lambda: sel_mod.select(d, k), 20)
+    plain_ms = cuda_ms(lambda: sel_mod.select_plain(d, k), 5)
+    print(f"select {tuple(d.shape)} k={k} over {c}-wide features: exact; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]", flush=True)
 
     for b in SELECT_BATCHES:                 # the headline shape last
         d = select_inputs(dev, g, b, SELECT_N)

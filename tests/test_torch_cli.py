@@ -42,7 +42,7 @@ def test_parser_has_every_flag_of_the_jax_cli():
     want, got = actions(jcli.build_parser()), actions(tcli.build_parser())
     arch = got.pop("arch")
     assert (arch.option_strings, arch.default, arch.choices) == (
-        ["--arch"], "3pu", ["3pu", "punet"])
+        ["--arch"], "3pu", ["3pu", "punet", "pugan"])
     assert list(got) == list(want)
     assert len(want) >= 40
     for dest, a in want.items():

@@ -530,6 +530,22 @@ def test_edge_conv_chain_kernel_is_the_plain_chain_bit_for_bit(dev, gen, b):
     assert torch.equal(got, want)
 
 
+def test_edge_conv_chain_kernel_at_the_pugan_shape_is_the_plain_chain(dev,
+                                                                     gen):
+    """PU-GAN's edge convs (B = 8 patches, N = 256, k = 16, G = 24, n = 3,
+    in the layer's layout) run the kernel's ``<3, 24>`` instance, whose
+    72 channels a lane leave it without the floor of blocks an SM that
+    the G = 12 instance keeps: bit for bit the plain chain, as at 3PU's
+    shapes."""
+    z, idx, pts, chain_w = _chain_inputs(gen, dev, 8, 256, 16, 3, 24,
+                                         "layer")
+    before = tec.KERNEL.launches
+    got = tec.edge_conv_chain(z, idx, pts, chain_w, 3, 24)
+    assert tec.KERNEL.launches == before + 1
+    want = tec.edge_conv_chain_plain(z, idx, pts, chain_w, 3, 24)
+    assert torch.equal(got, want)
+
+
 def test_edge_conv_chain_kernel_rejects_what_it_does_not_take(dev, gen):
     z, idx, pts, chain_w = _chain_inputs(gen, dev, 2, 10, 3, 2, 4)
     before = tec.KERNEL.launches

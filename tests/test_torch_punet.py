@@ -157,7 +157,7 @@ def test_load_net_takes_the_published_scopes_strictly(tmp_path):
         load_net(str(tmp_path / "short.pth"), device="cpu", arch="punet",
                  num_point=NUM_POINT)
     with pytest.raises(ValueError, match="no net"):
-        load_net(None, device="cpu", arch="pugan")
+        load_net(None, device="cpu", arch="pugcn")
 
 
 def test_the_reference_imports_nothing_of_the_port_or_jax():

@@ -19,8 +19,10 @@ file and plots each with :class:`threepu_torch.vis.Painter` (matplotlib).
 ``--step_ratio`` sets the net's per-level ratio in every phase (2: a 1-D
 code column, 4: a 2-D code grid).  ``--arch punet`` runs PU-Net's
 generator instead of 3PU's cascade in ``--phase test`` (``--up_ratio 4``;
-``--ckpt`` a ``.pth`` state dict under the published scope names); it
-is the port's one flag that the JAX package lacks.  Every
+``--ckpt`` a ``.pth`` state dict under the published scope names), and
+``--arch pugan`` PU-GAN's (its test protocol: ``--up_ratio 4
+--num_point 256``); it is the port's one flag that the JAX package
+lacks.  Every
 ``--knn_method`` but ``exact`` raises: they are not ported.
 
 The entry point runs on the CUDA device ``--device`` (or ``--gpu``) and
@@ -122,9 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile_dir",
                    help="profile the first shape with torch.profiler and "
                         "write a Chrome trace (trace.json) there")
-    p.add_argument("--arch", default="3pu", choices=["3pu", "punet"],
-                   help="the net: 3PU's cascade, or PU-Net's generator "
-                        "(--phase test, --up_ratio 4) [default: 3pu]")
+    p.add_argument("--arch", default="3pu", choices=["3pu", "punet", "pugan"],
+                   help="the net: 3PU's cascade, or PU-Net's or PU-GAN's "
+                        "generator (--phase test, --up_ratio 4) "
+                        "[default: 3pu]")
     p.add_argument("--restitch_groups", type=int, default=None,
                    help="final re-stitch FPS grouping.  Default auto: G=8 "
                         "Morton-stratified hierarchical FPS from 16384 "
@@ -163,12 +166,13 @@ def _device(flags, device: Device) -> Device:
 def _build_net(flags, device: Device = None) -> torch.nn.Module:
     """The flags' ``Net`` with ``--ckpt`` (``.npz``, or ``.pth`` through
     :func:`import_pth`) loaded strictly, on ``device`` (``None``: the CUDA
-    device ``--device``, else ``--gpu``); with ``--arch punet``, a
-    ``PUNet`` for patches of ``--num_point`` points and its state dict."""
-    if flags.arch == "punet":
+    device ``--device``, else ``--gpu``); with ``--arch punet`` or
+    ``pugan``, that net for patches of ``--num_point`` points and its
+    state dict."""
+    if flags.arch != "3pu":
         num_point = flags.num_point or int(flags.num_shape_point
                                            * flags.drop_out)
-        net = load_net(flags.ckpt, _device(flags, device), arch="punet",
+        net = load_net(flags.ckpt, _device(flags, device), arch=flags.arch,
                        num_point=num_point, up_ratio=flags.up_ratio)
         logger.info(f"restored {flags.ckpt}")
         return net.eval()
@@ -293,8 +297,8 @@ def main(argv: Optional[Sequence[str]] = None, device: Device = None) -> None:
             f"--knn_method {flags.knn_method} is not ported; only 'exact' is")
     if flags.phase != "train" and flags.ckpt is None:
         raise SystemExit(f"--ckpt is required for {flags.phase}")
-    if flags.arch == "punet" and flags.phase != "test":
-        raise SystemExit("--arch punet runs --phase test only")
+    if flags.arch != "3pu" and flags.phase != "test":
+        raise SystemExit(f"--arch {flags.arch} runs --phase test only")
     select_kernel = knn.EXACT_SELECT_KERNEL
     knn.set_exact_select_kernel(flags.select_kernel == "on")
     try:

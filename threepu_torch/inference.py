@@ -42,8 +42,9 @@ SLOT_CHUNKS: collections.Counter = collections.Counter()
 
 
 class Upsampler(Protocol):
-    """A net of the eval path (``Net``, ``PUNet``): normalized patches
-    ``(P, N, 3)`` in, ``(P, N * ratio, 3)`` out, in the same frame."""
+    """A net of the eval path (``Net``, ``PUNet``, ``PUGAN``): normalized
+    patches ``(P, N, 3)`` in, ``(P, N * ratio, 3)`` out, in the same
+    frame."""
 
     def upsample(self, xyz: torch.Tensor, ratio: Optional[int] = None,
                  capture: Optional[dict] = None) -> torch.Tensor: ...

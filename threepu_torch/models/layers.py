@@ -37,6 +37,13 @@ class Conv1x1(nn.Module):
         return self.weight.reshape(self.weight.shape[0], -1).t()
 
 
+def dense(conv: Conv1x1, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    """``conv`` on channels-last ``x``: ``x @ W^T + b``, then a ReLU unless
+    ``relu`` is False."""
+    y = x @ conv.matrix() + conv.bias
+    return torch.relu(y) if relu else y
+
+
 class DenseConv(nn.Module):
     """1x1 convolution over channels-last ``(B, N, C)`` with an optional
     ReLU (the reference's ``Conv1d``/``Conv2d``)."""

@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from threepu_torch.models.graphs import GraphedNet
-from threepu_torch.models.layers import Conv1x1
+from threepu_torch.models.layers import Conv1x1, dense
 from threepu_torch.ops.ball_query import ball_query
 from threepu_torch.ops.fps import fps
 from threepu_torch.ops.gather import batched_gather, gather_nd
@@ -58,14 +58,9 @@ EXPAND_MLP = (256, 128)
 COORD_MLP = (64, 3)
 
 
-def _dense(conv: Conv1x1, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
-    y = x @ conv.matrix() + conv.bias
-    return torch.relu(y) if relu else y
-
-
 def _mlp(convs: Sequence[Conv1x1], x: torch.Tensor) -> torch.Tensor:
     for conv in convs:
-        x = _dense(conv, x)
+        x = dense(conv, x)
     return x
 
 
@@ -141,8 +136,8 @@ class PUNet(GraphedNet):
                           self.up_layer[f"conv_{i}"]], x)
                     for i in range(self.up_ratio)]
         feat = torch.cat(branches, dim=1)                 # (P, 4N, 128)
-        return feat, _dense(self.fc_layer2, _dense(self.fc_layer1, feat),
-                            relu=False)
+        return feat, dense(self.fc_layer2, dense(self.fc_layer1, feat),
+                           relu=False)
 
     @torch.no_grad()
     def upsample(self, xyz: torch.Tensor, ratio: Optional[int] = None,

@@ -35,6 +35,7 @@ from threepu_torch.io.weights import load_jax_checkpoint
 from threepu_torch.models.graphs import EAGER, GraphedNet, Stages
 from threepu_torch.models.layers import (DenseConv, DenseEdgeConv,
                                          SampledDenseEdgeConv)
+from threepu_torch.models.pugan import PUGAN
 from threepu_torch.models.punet import PUNet
 from threepu_torch.ops import edgeconv
 from threepu_torch.ops.chamfer import self_nn_dist2
@@ -523,18 +524,19 @@ def load_net(weights: Optional[str] = None,
     """The net of ``arch`` built from ``cfg`` on ``device`` — the card
     unless another device (``"cpu"``) is named — with ``weights`` loaded
     strictly when given: ``"3pu"``, ``Net(**cfg)`` and a JAX checkpoint
-    (an ``.npz`` path); ``"punet"``, ``PUNet(**cfg)`` and the ``.pth``
-    that ``torch.save(net.state_dict())`` wrote (the published scope
-    names)."""
+    (an ``.npz`` path); ``"punet"``, ``PUNet(**cfg)``, and ``"pugan"``,
+    ``PUGAN(**cfg)``, each with the ``.pth`` that
+    ``torch.save(net.state_dict())`` wrote (the published scope names)."""
     dev = resolve_device(device)
-    if arch == "punet":
-        net = PUNet(**cfg)
+    nets = {"punet": PUNet, "pugan": PUGAN}
+    if arch in nets:
+        net = nets[arch](**cfg)
         if weights is not None:
             net.load_state_dict(torch.load(weights, map_location="cpu",
                                            weights_only=True), strict=True)
         return net.to(dev)
     if arch != "3pu":
-        raise ValueError(f"no net {arch!r}: '3pu' or 'punet'")
+        raise ValueError(f"no net {arch!r}: '3pu', 'punet' or 'pugan'")
     net = Net(**cfg)
     if weights is not None:
         net.load_state_dict(load_jax_checkpoint(weights), strict=True)
