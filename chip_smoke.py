@@ -15,7 +15,7 @@ no result line:
    over (8, 256, 256) with repeated points penalized) and FPS
    (AdaptiveLevel's 48 x 312 -> 48 and 48 x 48 -> 16, the level-2, 3 and 4
    merges, 8 x 6240 / 12480 / 24960 -> 1248 / 2496 / 4992, PU-GAN's net
-   FPS, 8 x 1536 -> 1024, and the final
+   FPS, 8 x 1536 -> 1024, PU-Net's SA1, 8 x 1024 -> 1024, and the final
    re-stitch, 8 x 29952 -> 10000, with a mask and non-finite points; the
    cluster plan taken and microseconds per pick printed for each, then
    the pick chain's floor at each cluster size) must match exactly;
@@ -293,10 +293,11 @@ SELECT_BATCHES, SELECT_N = (80, 160, 320), 312
 #: dense edge convs' 48-wide inputs
 SELECT_FEATURE_CASE = (8, 256, 48, 17)
 #: AdaptiveLevel's two samplings (48 patches: 312 -> 48, 48 -> 16), the
-#: merge re-stitches of levels 2, 3 and 4, a PU-GAN chunk's net FPS, then a
-#: group of the final G = 8 re-stitch
+#: merge re-stitches of levels 2, 3 and 4, a PU-GAN chunk's net FPS, a
+#: PU-Net chunk's SA1 sampling, then a group of the final G = 8 re-stitch
 FPS_CASES = ((48, 312, 48), (48, 48, 16), (8, 6240, 1248), (8, 12480, 2496),
-             (8, 24960, 4992), (8, 1536, 1024), (8, 29952, 10000))
+             (8, 24960, 4992), (8, 1536, 1024), (8, 1024, 1024),
+             (8, 29952, 10000))
 #: picks of the pick-chain floor (:func:`fps_chain_floor`)
 FPS_FLOOR_PICKS = 4992
 #: level 2 of the step-4 net, then levels 2, 3 and 4 of the step-2 net
@@ -776,9 +777,15 @@ def check_edgeconv(dev, g, card: str) -> dict:
 
 def fps_chain_floor(dev, card: str) -> None:
     """The FPS kernel on 8 clouds of N = C points, one point a block, at
-    each cluster size C: nearly all of a pick is then the argmaxes, the
-    distributed-shared-memory stores and the wait for the peers, so the
-    microseconds per pick are the pick chain's floor at that C."""
+    each cluster size C: nearly all of a pick is then its one exchange, so
+    the microseconds per pick are the pick chain's floor at that C.  The
+    exchange: every warp takes its candidate, key and point, with one
+    ``redux.sync`` and a ballot and publishes it (C > 1: lanes 0..C-1 take
+    it from the winning lane by shuffles and each sends it with one
+    ``st.async`` into the warp's slot of one block of the cluster, counted
+    on that block's mbarrier; C = 1: the winning lane's store into its own
+    block and one ``__syncthreads``); then every warp reduces the 8 C
+    slots itself with one ``redux.sync``, a ballot and shuffles."""
     import torch
     import threepu_torch.ops.fps as fps_mod
     picks = FPS_FLOOR_PICKS

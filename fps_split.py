@@ -10,11 +10,24 @@ library that the port loads, and its launch counters, are left alone.
 Runs the kernel at ``chip_smoke.py``'s phase-3 FPS shapes, laid out by
 ``ops.fps.fps_plan``, and at the pick chain's floor (8 clouds of N = C
 points, C = 1 to 8), holds every result against the plain version, and
-prints block 0's mean cycles per pick in each stage: the slice pass, the
-warp argmax, the block barrier, warp 0's block argmax and its stores into
-the peers, the wait for the peers' candidates, and the reduction of the
-C slots.  Needs one GPU; exits non-zero on a refused launch or a wrong
-pick.
+prints block 0's mean cycles per pick in each stage of its one exchange:
+
+- slice pass: each thread's update of its points and their largest
+  carry (an ``fmaxf`` tree; the first place that holds it comes from the
+  same tree);
+- warp argmax: the warp's candidate, one ``redux.sync`` and a ballot
+  (a second ``redux.sync`` only where real carries tie between lanes);
+- publish: the candidate, its key and its point, into the warp's slot
+  of every block (C > 1: lanes 0..C-1 take it from the winning lane by
+  shuffles, each sends it to one block with one ``st.async``) or of its
+  own block (C = 1: the winning lane's plain store);
+- exchange wait: C > 1, the wait on the block's mbarrier for the 8 C
+  candidates of the cluster; C = 1, the one ``__syncthreads``;
+- slot reduction: the warp's own reduction of the 8 C slots (one
+  ``redux.sync`` and a ballot: slot order is index order) and the
+  winner's point by shuffles.
+
+Needs one GPU; exits non-zero on a refused launch or a wrong pick.
 """
 
 from __future__ import annotations
@@ -29,8 +42,8 @@ import threepu_torch.ops.fps as fps_mod
 from threepu_torch import _build, require_cuda
 from threepu_torch.device import card_line
 
-STAGES = ("slice pass", "warp argmax", "block barrier",
-          "block argmax + stores", "wait for peers", "peer reduction")
+STAGES = ("slice pass", "warp argmax", "publish", "exchange wait",
+          "slot reduction")
 
 
 def main() -> int:

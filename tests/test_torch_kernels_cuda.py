@@ -85,18 +85,23 @@ def test_select_kernel_rejects_what_it_does_not_take(dev):
     (8, 40000, 200, 8, False), (1, 250000, 32, 8, False),
     (1, 100000, 64, 8, False), (2, 8192, 500, 4, True),
     (1, 40000, 300, 8, True), (48, 312, 48, 1, False),
-    (48, 48, 16, 1, False)],
+    (48, 48, 16, 1, False), (8, 1536, 1024, 1, True),
+    (8, 1024, 1024, 1, True), (8, 29952, 600, 8, True)],
     ids=["small", "wide", "all-points", "cluster-2", "cluster-8",
          "cluster-8-16-a-thread", "large-cloud", "device-memory",
          "shared-memory", "repeated-4", "repeated-8", "adaptive-312",
-         "adaptive-48"])
+         "adaptive-48", "repeated-pugan-1", "repeated-punet-1",
+         "repeated-8-16-a-thread"])
 def test_fps_kernel_matches_plain(dev, gen, b, n, m, cluster, repeated):
     """Bit for bit at every cluster size the plan chooses, with the slice
     in registers (8 and 16 points a thread), in shared memory (N =
     100,000) and in device memory (N = 250,000), m = N, the seed off
     index 0, NaN and inf points.
     ``repeated``: 7 distinct points repeated over the cloud, so every pick
-    ties across the blocks of a cluster and the lowest index must win."""
+    ties across the blocks of a cluster and the lowest index must win; at
+    cluster 1 (PU-GAN's 8 x 1,536 -> 1,024 and PU-Net's 8 x 1,024 -> 1,024,
+    m = N) the ties cross the 8 warps of one block, at 8 x 29,952 (cluster
+    8, 16 points a thread) both warps and blocks."""
     if repeated:
         pts = torch.randn((b, 7, 3), generator=gen, device=dev).repeat(
             1, -(-n // 7), 1)[:, :n].contiguous()
